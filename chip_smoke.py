@@ -1,0 +1,410 @@
+"""Smoke run of rat_tpu_torch on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--seed N]
+
+Phases, any failure exits non-zero:
+
+1. build   — compile the CUDA kernels of rat_tpu_torch/csrc/ into
+             build/kernels/ (one nvcc per source, in parallel).
+2. kernels — hold each kernel against its plain PyTorch version on the
+             card: K1 (fused cross/intra block) at the ML-Tag, KKBox and
+             Tmall block shapes and heads=1/dim_head=d, rtol 1e-4 /
+             atol 1e-5; K2 (BM25 score + top-K) exactly, after the
+             zero-score drop, on tie-heavy pools, K above the pool size
+             and 4096 queries against the serving pool. Each is timed
+             with CUDA events beside its plain version.
+3. serve   — RAT_m2 at the full width of the ML-Tag config
+             (configs/RAT_m2/movielenslatest_x1, plus use_pallas) on
+             ML-Tag-shaped data made from the seed: a ~1.4M-row pool,
+             ~0.2M requests retrieved by BM25 through K2, then scored by
+             Trainer.evaluate through K1, with seeded random weights.
+             Launch counts are zeroed before and read after this phase.
+4. profile — one more pass of the main path under torch.profiler:
+             device time by kernel, and the device's idle share.
+
+The line before the last is the kernel table as JSON; the last line
+says the run was ok, and names the device. Without CUDA the script
+exits non-zero before printing either.
+"""
+
+import argparse
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from rat_tpu_torch.data.loader import DataGenerator
+from rat_tpu_torch.engine import Trainer
+from rat_tpu_torch.engine.trainer import _gather_batch
+from rat_tpu_torch.features import FeatureMap
+from rat_tpu_torch.ops import _build
+from rat_tpu_torch.ops import bm25_topk as k2
+from rat_tpu_torch.ops import cross_intra_block as k1
+from rat_tpu_torch.retrieval import bm25
+
+# RAT_m2_movielenslatest_x1_10fold_retrieval at its published widths
+# (configs/RAT_m2/movielenslatest_x1/model_config.yaml), plus the fused
+# kernel path switch.
+MLTAG_PARAMS = {
+    "model": "RAT_m2", "model_id": "RAT_m2_movielenslatest_x1_10fold_retrieval",
+    "dataset_id": "movielenslatest_x1_10fold_retrieval", "model_root": None,
+    "embedding_dim": 10, "num_heads": 2, "dim_head": 10, "depth": 4,
+    "scale_dim": 4, "dnn_hidden_units": [400, 400, 400],
+    "dnn_activations": "relu", "use_wide": True, "batch_norm": False,
+    "dropout": 0.0, "emb_dropout": 0.0, "net_dropout": 0.0,
+    "batch_size": 4096, "metrics": ["AUC", "logloss"], "seed": 2021,
+    "use_pallas": True,
+}
+# the dataset's retrieval block (dataset_config.yaml)
+MLTAG_RETRIEVAL = {
+    "used_cols": ["user_id", "item_id", "tag_id"], "exact_match_cols": [],
+    "split_type": "10-fold", "label_wise": False, "pre_retrieval": True,
+    "qry_batch_size": 5000, "db_chunk_size": 50000, "topK": 5,
+    "used_col_indices": [0, 1, 2], "exact_match_col_indices": None,
+}
+# ML-Tag (MovielensLatest_x1) holds ~90k ids over its three fields and
+# 1,404,801 / 200,686 train / test rows; id 0 is left for the encoder's
+# out-of-vocabulary slot
+MLTAG_VOCAB = {"user_id": 16_973, "item_id": 23_745, "tag_id": 49_659}
+MLTAG_POOL_ROWS = 1_404_801
+MLTAG_TEST_ROWS = 200_686
+
+# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
+# and HBM3 bandwidth
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+
+
+def mltag_feature_map():
+    fm = FeatureMap("movielenslatest_x1_10fold_retrieval", ".")
+    for i, (name, vocab) in enumerate(MLTAG_VOCAB.items()):
+        fm.feature_specs[name] = {"source": "", "type": "categorical",
+                                  "vocab_size": vocab, "index": i}
+    fm.num_fields = len(MLTAG_VOCAB)
+    fm.num_features = sum(MLTAG_VOCAB.values())
+    fm.input_length = len(MLTAG_VOCAB)
+    return fm
+
+
+def mltag_arrays(seed, n_pool, n_test, vocab=None, zipf_a=1.05):
+    """(pool [n_pool, 4], test [n_test, 4]) float64 rows of three ids and
+    a 0/1 label. Each field's ids follow a Zipf law over its vocabulary,
+    as interaction logs do, so matches and ties are frequent; labels
+    come from latent per-id propensities (about a third positive)."""
+    rng = np.random.RandomState(seed)
+    vocab = vocab or MLTAG_VOCAB
+    n = n_pool + n_test
+    cols, logit = [], np.full(n, -0.7)
+    for size in vocab.values():
+        p = 1.0 / np.arange(1, size) ** zipf_a
+        ids = 1 + rng.choice(size - 1, n, p=p / p.sum())
+        cols.append(ids)
+        logit += rng.normal(0, 0.8, size)[ids]
+    label = rng.uniform(size=n) < 1.0 / (1.0 + np.exp(-logit))
+    rows = np.stack(cols + [label], axis=1).astype(np.float64)
+    return rows[:n_pool], rows[n_pool:]
+
+
+def _serve_path(device, seed, pool, test, batch_size):
+    """The main path as a user drives it: a DataGenerator retrieves every
+    request's neighbours from the pool (K2 on a GPU), then
+    Trainer.evaluate scores them through rat_m2_fast_forward (K1 per
+    block). Returns (gen, trainer, data, logs, timings in ms)."""
+    fm = mltag_feature_map()
+    params = dict(MLTAG_PARAMS, batch_size=batch_size, seed=seed)
+    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" \
+        else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    gen = DataGenerator(data_array=test, pool_array=pool, batch_size=batch_size,
+                        feature_map=fm, retrieval_configs=dict(MLTAG_RETRIEVAL),
+                        retrieval_pool_fname="mltag_pool",
+                        retrieval_augmented=True, device=device)
+    sync()
+    t1 = time.perf_counter()
+    trainer = Trainer(fm, params, device=device)
+    data = trainer.device_split(gen)
+    sync()
+    t2 = time.perf_counter()
+    logs = trainer.evaluate(gen, data)
+    sync()
+    t3 = time.perf_counter()
+    return gen, trainer, data, logs, {"retrieval_ms": (t1 - t0) * 1e3,
+                                      "upload_ms": (t2 - t1) * 1e3,
+                                      "scoring_ms": (t3 - t2) * 1e3}
+
+
+def serve(device, seed, pool, test, batch_size):
+    """Run the main path with the launch counts zeroed just before and
+    read just after, then check its outputs: finite predictions in
+    [0, 1], and on the first requests the plain scan's neighbours and
+    the module forward's scores. Returns a dict of results."""
+    k1.launches = k2.launches = 0
+    gen, trainer, data, logs, times = _serve_path(device, seed, pool, test,
+                                                  batch_size)
+    launches = {"cross_intra_block": k1.launches, "bm25_topk": k2.launches}
+
+    y_pred = trainer.predict(gen, data)
+    if y_pred.shape != (len(test),) or not np.all(np.isfinite(y_pred)) \
+            or y_pred.min() < 0 or y_pred.max() > 1:
+        raise AssertionError("serve: predictions of bad shape or range")
+    n_chk = min(512, len(test))
+    K = MLTAG_RETRIEVAL["topK"]
+    used = MLTAG_RETRIEVAL["used_col_indices"]
+    tables = bm25._compute_idf_tables(pool[:, used].astype(np.int64))
+    db_T = torch.zeros((len(used), max(len(pool), K)), dtype=torch.int32,
+                       device=device)
+    db_T[:, :len(pool)] = torch.from_numpy(pool[:, used].T.astype(np.int32)).to(device)
+    q = torch.from_numpy(np.ascontiguousarray(test[:n_chk, used], dtype=np.int32)).to(device)
+    idf = bm25._idf_lookup_dense(q, *bm25._pack_idf_dense(tables, device))
+    v, i, lens = bm25._finalize(*k2.bm25_topk_reference(q, idf.contiguous(), db_T,
+                                                       len(pool), K), False)
+    for got, want in ((gen.retr_indices[:n_chk], i), (gen.retr_values[:n_chk], v),
+                      (gen.retr_lens[:n_chk], lens)):
+        if not np.array_equal(got, want.cpu().numpy().astype(got.dtype)):
+            raise AssertionError("serve: retrieval differs from the plain scan")
+    X, y, _ = _gather_batch(data, torch.arange(min(batch_size, len(test)),
+                                               device=device))
+    with torch.no_grad():
+        plain = trainer.model(X, y)["y_pred"][:, 0].cpu().numpy()
+    plain_err = float(np.abs(plain - y_pred[:len(plain)]).max())
+    if plain_err > 1e-5:
+        raise AssertionError("serve: fused path differs from the module "
+                             "forward by {}".format(plain_err))
+    return dict({"requests": len(test), "pool_rows": len(pool),
+                 "batches": gen.num_batches, "depth": trainer.model.depth},
+                **times,
+                scoring_examples_per_s=len(test) / times["scoring_ms"] * 1e3,
+                AUC=logs["AUC"], logloss=logs["logloss"],
+                fused_vs_module_max_abs_err=plain_err, launches=launches)
+
+
+def profile_serve(device, seed, pool, test, batch_size, rows=15):
+    """Device time by kernel over one more pass of the main path
+    (torch.profiler), and the device's busy and idle share of it."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _serve_path(device, seed, pool, test, batch_size)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    print("profile: wall {:.3f} ms, device busy {:.3f} ms, idle share {:.4f}".format(
+        wall_ms, busy_ms, 1 - busy_ms / wall_ms))
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:rows]:
+        print("profile: {:10.3f} ms {:6d} calls  {}".format(
+            e.self_device_time_total / 1e3, e.count, e.key[:100]))
+
+
+def _cuda_ms(fn, reps, warmup=1):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _bound(ops, nbytes):
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _k1_weights(rng, d, heads, dim_head, hidden, project_out, device):
+    inner = heads * dim_head
+
+    def w(out_dim, in_dim):
+        return torch.from_numpy((rng.randn(out_dim, in_dim) / np.sqrt(in_dim))
+                                .astype(np.float32)).to(device)
+
+    def vec(n, base=0.0):
+        return torch.from_numpy((base + 0.1 * rng.randn(n)).astype(np.float32)).to(device)
+
+    p = {}
+    for i in ("1", "2"):
+        p["ln" + i + "_scale"], p["ln" + i + "_bias"] = vec(d, 1.0), vec(d)
+        p["w_qkv" + i] = w(3 * inner, d)
+        p["w_out" + i] = w(d, inner) if project_out else None
+        p["b_out" + i] = vec(d) if project_out else None
+    p["ff_w1"], p["ff_b1"] = w(hidden, d), vec(hidden)
+    p["ff_w2"], p["ff_b2"] = w(d, hidden), vec(d)
+    return p
+
+
+def k1_flops(t, s, d, heads, dim_head, hidden, project_out):
+    """float32 operations of one block on one sample: the products
+    (2 per multiply-add), plus LayerNorm (~8 per element), softmax (~5
+    per score) and GELU (~10 per hidden unit)."""
+    n, inner = t * s, heads * dim_head
+    ops = 0
+    for L in (s, t):
+        ops += 2 * n * d * 3 * inner + 4 * n * L * inner + 5 * n * L * heads
+        ops += 8 * n * d + (2 * n * inner * d if project_out else 0)
+    return ops + 4 * n * d * hidden + 10 * n * hidden
+
+
+def check_k1(rng, device):
+    """K1 against its plain version; returns the table entry."""
+    shapes = [("mltag", 4096, 6, 4, 10, 2, 10), ("mltag_b4093", 4093, 6, 4, 10, 2, 10),
+              ("kkbox", 4096, 6, 14, 40, 8, 10), ("tmall", 4096, 6, 9, 10, 32, 10),
+              ("heads1_dh_eq_d", 4096, 6, 4, 10, 1, 10)]
+    worst = 0.0
+    timed = None
+    for name, B, t, s, d, heads, dim_head in shapes:
+        project_out = not (heads == 1 and dim_head == d)
+        hidden = 4 * d
+        p = _k1_weights(rng, d, heads, dim_head, hidden, project_out, device)
+        x = torch.from_numpy(rng.randn(B, t, s, d).astype(np.float32)).to(device)
+        got = k1.cross_intra_block(x, p, heads, dim_head, project_out)
+        want = k1.cross_intra_block_reference(x, p, heads, dim_head, project_out)
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        ok = bool((err <= 1e-5 + 1e-4 * want.abs()).all())
+        print("K1 {:16s} B={:5d} t={} s={:2d} d={:2d} h={:2d} dh={:2d}: max_abs_err "
+              "{:.3e} (rtol 1e-4, atol 1e-5) {}".format(name, B, t, s, d, heads, dim_head,
+                                 err.max().item(), "ok" if ok else "FAIL"))
+        if not ok:
+            raise AssertionError("K1 disagrees with its plain version at " + name)
+        worst = max(worst, err.max().item())
+        if name == "mltag":
+            timed = (x, p, heads, dim_head, project_out, (B, t, s, d, hidden))
+    x, p, heads, dim_head, project_out, (B, t, s, d, hidden) = timed
+    ms = _cuda_ms(lambda: k1.cross_intra_block(x, p, heads, dim_head, project_out), 50)
+    plain_ms = _cuda_ms(lambda: k1.cross_intra_block_reference(
+        x, p, heads, dim_head, project_out), 20)
+    wbytes = sum(w.numel() * 4 for w in p.values() if w is not None)
+    bound_ms, bound_by = _bound(
+        B * k1_flops(t, s, d, heads, dim_head, hidden, project_out),
+        2 * B * t * s * d * 4 + wbytes)
+    return {"name": "cross_intra_block", "route": "cuda",
+            "source": "rat_tpu_torch/csrc/cross_intra_block.cu",
+            "replaces": "rat_tpu/ops/pallas/cross_intra_block.py:206",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "shape": "B=4096 t=6 s=4 d=10 h=2 dh=10 (ML-Tag block)"}
+
+
+def _k2_case(db, qry, K, device):
+    """Kernel and plain K2 on the same inputs, each finalized."""
+    N, F = db.shape
+    db_T = torch.zeros((F, max(N, K)), dtype=torch.int32, device=device)
+    db_T[:, :N] = torch.from_numpy(db.T.astype(np.int32)).to(device)
+    tables = bm25._compute_idf_tables(db)
+    pack = bm25._pack_idf_dense(tables, device)
+    q = torch.from_numpy(np.ascontiguousarray(qry, dtype=np.int32)).to(device)
+    idf = bm25._idf_lookup_dense(q, *pack).contiguous()
+    got = bm25._finalize(*k2.bm25_topk(q, idf, db_T, N, K), False)
+    want = bm25._finalize(*k2.bm25_topk_reference(q, idf, db_T, N, K), False)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    return same, (q, idf, db_T, N, K)
+
+
+def check_k2(rng, device, pool, test):
+    """K2 against its plain version, exactly; returns the table entry."""
+    cases = []
+    for name, N, Q, F, vocab, K in (("f3_heavy_ties", 20_000, 1000, 3, 6, 5),
+                                    ("f11_pool_not_tile_multiple", 50_001, 777, 11, 50, 7),
+                                    ("k_above_pool_rows", 7, 300, 3, 4, 10),
+                                    ("k32_f5", 9_999, 333, 5, 20, 32)):
+        db = rng.randint(0, vocab, (N, F)).astype(np.int64)
+        qry = np.concatenate([db[rng.randint(0, N, Q // 2)],
+                              rng.randint(0, vocab + 2, (Q - Q // 2, F))])
+        cases.append((name, db, qry, K))
+    used = MLTAG_RETRIEVAL["used_col_indices"]
+    cases.append(("mltag_b4096_pool", pool[:, used].astype(np.int64),
+                  test[:4096, used].astype(np.int64), MLTAG_RETRIEVAL["topK"]))
+    for name, db, qry, K in cases:
+        same, args = _k2_case(db, qry, K, device)
+        print("K2 {:28s} N={:8d} B={:5d} F={:2d} K={:2d}: {} (exact)".format(
+            name, len(db), len(qry), db.shape[1], K, "equal" if same else "DIFFER"))
+        if not same:
+            raise AssertionError("K2 disagrees with its plain version at " + name)
+    q, idf, db_T, N, K = args
+    ms = _cuda_ms(lambda: k2.bm25_topk(q, idf, db_T, N, K), 20)
+    plain_ms = _cuda_ms(lambda: k2.bm25_topk_reference(q, idf, db_T, N, K), 2)
+    B, F = q.shape
+    bound_ms, bound_by = _bound(B * N * 2 * F, F * N * 4 + B * F * 8 + B * K * 8)
+    return {"name": "bm25_topk", "route": "cuda",
+            "source": "rat_tpu_torch/csrc/bm25_topk.cu",
+            "replaces": "rat_tpu/ops/pallas/bm25_scan.py:193",
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "shape": "B=4096 F=3 K=5 against the {}-row pool".format(N)}
+
+
+def _print_build_report():
+    """ptxas's register and spill report, summed up per source."""
+    for name in sorted(f for f in os.listdir(_build.BUILD_DIR) if f.endswith(".log")):
+        with open(os.path.join(_build.BUILD_DIR, name)) as fh:
+            text = fh.read()
+        regs = [int(n) for n in re.findall(r"Used (\d+) registers", text)]
+        spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores", text)]
+        print("ptxas {}: {} kernels, at most {} registers and {} bytes of "
+              "spill stores per thread".format(name[:-4], len(regs),
+                                               max(regs, default=0),
+                                               max(spills, default=0)))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(smi.splitlines()[0])
+    device = torch.device("cuda", 0)
+    print("torch {} cuda {} python {}".format(torch.__version__, torch.version.cuda,
+                                              sys.version.split()[0]))
+
+    t0 = time.perf_counter()
+    _build.build_all()
+    print("build: {:.1f} s".format(time.perf_counter() - t0))
+    _print_build_report()
+
+    rng = np.random.RandomState(args.seed)
+    t0 = time.perf_counter()
+    pool, test = mltag_arrays(args.seed, MLTAG_POOL_ROWS, MLTAG_TEST_ROWS)
+    print("data: {} pool rows, {} requests in {:.1f} s".format(
+        len(pool), len(test), time.perf_counter() - t0))
+    kernels = [check_k1(rng, device), check_k2(rng, device, pool, test)]
+
+    batch_size = MLTAG_PARAMS["batch_size"]
+    res = serve(device, args.seed, pool, test, batch_size)
+    launches = res.pop("launches")
+    print("serve: " + json.dumps(res))
+    print("serve launches: " + json.dumps(launches))
+    if launches["bm25_topk"] < 1:
+        raise AssertionError("serve: K2 was never launched")
+    if launches["cross_intra_block"] != res["depth"] * res["batches"]:
+        raise AssertionError("serve: K1 launched {} times, expected depth x "
+                             "batches = {}".format(launches["cross_intra_block"],
+                                                   res["depth"] * res["batches"]))
+    for entry in kernels:
+        entry["launches"] = launches[entry["name"]]
+    profile_serve(device, args.seed, pool, test, batch_size)
+    print(smi.splitlines()[0])
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

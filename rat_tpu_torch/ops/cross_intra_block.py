@@ -1,0 +1,133 @@
+"""Kernel K1: one fused RAT_m2 cross/intra encoder block, and its plain
+PyTorch version.
+
+Port of rat_tpu/ops/pallas/cross_intra_block.py (forward only; the JAX
+backward is the VJP of the plain math, not a kernel).
+``cross_intra_block`` launches the CUDA kernel
+(csrc/cross_intra_block.cu) on CUDA tensors and runs
+``cross_intra_block_reference`` on CPU tensors; there is no other
+fallback.
+
+``x`` is [B, t, s, d] float32 as in the JAX package. ``params`` holds
+the 14 weights of ``PARAM_ORDER`` in ``nn.Linear`` layout ([out, in]):
+``w_qkv*`` [3*h*dh, d], ``w_out*`` [d, h*dh], ``ff_w1`` [hidden, d],
+``ff_w2`` [d, hidden]. Without ``project_out`` (heads == 1 and
+dim_head == d) the projection is skipped, and ``w_out*``/``b_out*`` may
+be None.
+"""
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+PARAM_ORDER = ("ln1_scale", "ln1_bias", "w_qkv1", "w_out1", "b_out1",
+               "ln2_scale", "ln2_bias", "w_qkv2", "w_out2", "b_out2",
+               "ff_w1", "ff_b1", "ff_w2", "ff_b2")
+
+#: kernel launches made by :func:`cross_intra_block` (CUDA tensors only)
+launches = 0
+
+
+def attention(x, w_qkv, w_out, b_out, heads, dim_head, project_out):
+    """x [n, seq, d] -> [n, seq, d]: fused QKV (no bias), per-head
+    softmax attention scaled by dim_head ** -0.5, out-projection."""
+    n, s, _ = x.shape
+    q, k, v = F.linear(x, w_qkv).chunk(3, dim=-1)
+
+    def heads_first(t):
+        return t.reshape(n, s, heads, -1).transpose(1, 2)
+
+    q, k, v = heads_first(q), heads_first(k), heads_first(v)
+    dots = torch.matmul(q, k.transpose(-1, -2)) * dim_head ** -0.5
+    out = torch.matmul(torch.softmax(dots, dim=-1), v)
+    out = out.transpose(1, 2).reshape(n, s, -1)
+    if project_out:
+        out = F.linear(out, w_out, b_out)
+    return out
+
+
+def cross_intra_block_reference(x, params, heads, dim_head, project_out=True):
+    """Plain version of the block: intra attention over s, cross
+    attention over t (each pre-LN, eps 1e-5, with residual), then the
+    FF with exact GELU and no pre-norm."""
+    p = params
+    b, t, s, d = x.shape
+    h = x.reshape(b * t, s, d)
+    h = attention(F.layer_norm(h, (d,), p["ln1_scale"], p["ln1_bias"], 1e-5),
+                  p["w_qkv1"], p["w_out1"], p["b_out1"], heads, dim_head,
+                  project_out) + h
+    h = h.reshape(b, t, s, d).transpose(1, 2).reshape(b * s, t, d)
+    h = attention(F.layer_norm(h, (d,), p["ln2_scale"], p["ln2_bias"], 1e-5),
+                  p["w_qkv2"], p["w_out2"], p["b_out2"], heads, dim_head,
+                  project_out) + h
+    ff = F.gelu(F.linear(h, p["ff_w1"], p["ff_b1"]), approximate="none")
+    h = F.linear(ff, p["ff_w2"], p["ff_b2"]) + h
+    return h.reshape(b, s, t, d).transpose(1, 2).contiguous()
+
+
+def smem_bytes_per_sample(t, s, d, heads, dim_head, hidden):
+    """Shared memory the kernel needs for one sample."""
+    fn = _build.load("cross_intra_block").cross_intra_block_smem_per_sample
+    fn.argtypes = [ctypes.c_int] * 6
+    fn.restype = ctypes.c_longlong
+    return fn(t, s, d, heads, dim_head, hidden)
+
+
+def cross_intra_block(x, params, heads, dim_head, project_out=True):
+    """Dispatch on x's device: CUDA -> kernel K1 (or raise), CPU ->
+    :func:`cross_intra_block_reference`."""
+    if x.device.type == "cpu":
+        return cross_intra_block_reference(x, params, heads, dim_head,
+                                           project_out)
+    if x.device.type != "cuda":
+        raise ValueError("cross_intra_block: unsupported device {}".format(x.device))
+    if x.dtype != torch.float32 or x.dim() != 4 or not x.is_contiguous():
+        raise ValueError("cross_intra_block: x must be a contiguous float32 "
+                         "[B, t, s, d] tensor, got {} {}".format(
+                             x.dtype, tuple(x.shape)))
+    B, t, s, d = x.shape
+    inner = heads * dim_head
+    if not project_out and inner != d:
+        raise ValueError("project_out=False needs heads * dim_head == d")
+    hidden = params["ff_w1"].shape[0]
+    shapes = {"ln1_scale": (d,), "ln1_bias": (d,), "w_qkv1": (3 * inner, d),
+              "w_out1": (d, inner), "b_out1": (d,),
+              "ln2_scale": (d,), "ln2_bias": (d,), "w_qkv2": (3 * inner, d),
+              "w_out2": (d, inner), "b_out2": (d,),
+              "ff_w1": (hidden, d), "ff_b1": (hidden,),
+              "ff_w2": (d, hidden), "ff_b2": (d,)}
+    ptrs = []
+    for name in PARAM_ORDER:
+        w = params.get(name)
+        if w is None and not project_out and name[:5] in ("w_out", "b_out"):
+            ptrs.append(None)
+            continue
+        if w is None or w.device != x.device or w.dtype != torch.float32 \
+                or tuple(w.shape) != shapes[name] or not w.is_contiguous():
+            raise ValueError("cross_intra_block: {} must be a contiguous "
+                             "float32 tensor of shape {} on {}".format(
+                                 name, shapes[name], x.device))
+        ptrs.append(w.data_ptr())
+    lib = _build.load("cross_intra_block")
+    need = smem_bytes_per_sample(t, s, d, heads, dim_head, hidden)
+    limit = lib.cross_intra_block_max_smem_bytes()
+    if need > limit:
+        raise ValueError("cross_intra_block: one sample of shape t={} s={} d={} "
+                         "heads={} dim_head={} needs {} bytes of shared memory, "
+                         "above the {} a block may use".format(
+                             t, s, d, heads, dim_head, need, limit))
+    out = torch.empty_like(x)
+    fn = lib.cross_intra_block_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 8 \
+        + [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(x.data_ptr(), out.data_ptr(), B, t, s, d, heads, dim_head, hidden,
+             int(project_out), (ctypes.c_void_p * 14)(*ptrs),
+             torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "cross_intra_block kernel")
+    global launches
+    launches += 1
+    return out

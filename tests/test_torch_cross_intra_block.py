@@ -1,0 +1,84 @@
+"""Kernel K1's plain version (rat_tpu_torch.ops.cross_intra_block)
+against the JAX package's ``cross_intra_block_reference``.
+
+Same float32 inputs from a seeded numpy RNG go through both; the port's
+weights are the JAX ones transposed to nn.Linear layout. Tolerance
+rtol 1e-5 / atol 1e-6: the two differ only in the order of float32
+sums (tests/test_pallas.py holds the flax block to the same)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rat_tpu.ops.pallas.cross_intra_block import \
+    cross_intra_block_reference as jax_block
+from rat_tpu_torch.ops import cross_intra_block as k1
+
+
+def _weights(rng, d, heads, dim_head, hidden, project_out):
+    """JAX-layout ([in, out]) block weights."""
+    inner = heads * dim_head
+
+    def w(*shape):
+        return (rng.randn(*shape) / np.sqrt(shape[0])).astype(np.float32)
+
+    p = {}
+    for i in ("1", "2"):
+        p["ln" + i + "_scale"] = (1 + 0.1 * rng.randn(d)).astype(np.float32)
+        p["ln" + i + "_bias"] = (0.1 * rng.randn(d)).astype(np.float32)
+        p["w_qkv" + i] = w(d, 3 * inner)
+        p["w_out" + i] = w(inner, d) if project_out else np.zeros((d, d), np.float32)
+        p["b_out" + i] = (0.1 * rng.randn(d)).astype(np.float32) if project_out \
+            else np.zeros((d,), np.float32)
+    p["ff_w1"] = w(d, hidden)
+    p["ff_b1"] = (0.1 * rng.randn(hidden)).astype(np.float32)
+    p["ff_w2"] = w(hidden, d)
+    p["ff_b2"] = (0.1 * rng.randn(d)).astype(np.float32)
+    return p
+
+
+def _to_torch(p, project_out):
+    out = {}
+    for k, v in p.items():
+        if not project_out and k[:5] in ("w_out", "b_out"):
+            out[k] = None
+            continue
+        out[k] = torch.from_numpy(np.ascontiguousarray(v.T if v.ndim == 2 else v))
+    return out
+
+
+# (B, t, s, d, heads, dim_head): ML-Tag block, KKBox-like, heads=1 dh=d
+SHAPES = {
+    "mltag": (16, 6, 4, 10, 2, 10),
+    "kkbox": (4, 6, 14, 40, 8, 10),
+    "single_head_dh_eq_d": (8, 6, 4, 10, 1, 10),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_plain_block_matches_jax_reference(name):
+    B, t, s, d, heads, dim_head = SHAPES[name]
+    project_out = not (heads == 1 and dim_head == d)
+    rng = np.random.RandomState(7)
+    x = rng.randn(B, t, s, d).astype(np.float32)
+    p = _weights(rng, d, heads, dim_head, 4 * d, project_out)
+    want = np.asarray(jax_block(jnp.asarray(x),
+                                {k: jnp.asarray(v) for k, v in p.items()},
+                                heads, dim_head, project_out=project_out))
+    before = k1.launches
+    got = k1.cross_intra_block(torch.from_numpy(x), _to_torch(p, project_out),
+                               heads, dim_head, project_out=project_out)
+    assert k1.launches == before, "a CPU call must not count as a launch"
+    assert got.shape == x.shape and got.is_contiguous()
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+
+
+def test_cpu_wrapper_is_the_plain_version():
+    B, t, s, d, heads, dim_head = SHAPES["mltag"]
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.randn(B, t, s, d).astype(np.float32))
+    p = _to_torch(_weights(rng, d, heads, dim_head, 4 * d, True), True)
+    torch.testing.assert_close(
+        k1.cross_intra_block(x, p, heads, dim_head),
+        k1.cross_intra_block_reference(x, p, heads, dim_head), rtol=0, atol=0)
