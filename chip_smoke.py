@@ -11,16 +11,34 @@ Phases, any failure exits non-zero:
              Tmall block shapes and heads=1/dim_head=d, rtol 1e-4 /
              atol 1e-5; K2 (BM25 score + top-K) exactly, after the
              zero-score drop, on tie-heavy pools, K above the pool size
-             and 4096 queries against the serving pool. Each is timed
-             with CUDA events beside its plain version.
-3. serve   — RAT_m2 at the full width of the ML-Tag config
+             and 4096 queries against the serving pool; K3 (dense BM25
+             chunk scores) exactly (torch.equal) at 4096 requests x
+             50,000 pool rows, F=11 with ragged B and C, heavy ties and
+             F=16. Each is timed with CUDA events beside its plain
+             version.
+3. K1 grad — K1 under autograd (ops.cross_intra_block.CrossIntraBlock):
+             dx and the 14 weight gradients against autograd of the
+             plain version at the ML-Tag (B=4096 and 4093), KKBox and
+             heads=1/dim_head=d shapes, rtol 2e-3 / atol 1e-4;
+             forward+backward timed for both.
+4. serve   — RAT_m2 at the full width of the ML-Tag config
              (configs/RAT_m2/movielenslatest_x1, plus use_pallas) on
              ML-Tag-shaped data made from the seed: a ~1.4M-row pool,
              ~0.2M requests retrieved by BM25 through K2, then scored by
              Trainer.evaluate through K1, with seeded random weights.
              Launch counts are zeroed before and read after this phase.
-4. profile — one more pass of the main path under torch.profiler:
-             device time by kernel, and the device's idle share.
+5. profile — one more pass of serving under torch.profiler: device
+             time by kernel, and the device's idle share.
+6. train   — the same config trained as a user drives it: the ~1.4M
+             rows as the train split with 10-fold self-retrieval (K2),
+             the ~0.2M rows as the valid split retrieved against it,
+             a one-step check (the fused step's loss and gradients
+             against the module path's), then Trainer.fit for one epoch
+             (K1 forward in every step and every eval batch), the
+             reload of the best checkpoint, and asserted launch counts.
+7. train profile — 20 more train steps timed, then under
+             torch.profiler: device time by kernel, K1's forward
+             against the autograd backward of the block, idle share.
 
 The line before the last is the kernel table as JSON; the last line
 says the run was ok, and names the device. Without CUDA the script
@@ -33,6 +51,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -43,13 +62,15 @@ from rat_tpu_torch.engine import Trainer
 from rat_tpu_torch.engine.trainer import _gather_batch
 from rat_tpu_torch.features import FeatureMap
 from rat_tpu_torch.ops import _build
+from rat_tpu_torch.ops import bm25_score_chunk as k3
 from rat_tpu_torch.ops import bm25_topk as k2
 from rat_tpu_torch.ops import cross_intra_block as k1
 from rat_tpu_torch.retrieval import bm25
 
 # RAT_m2_movielenslatest_x1_10fold_retrieval at its published widths
-# (configs/RAT_m2/movielenslatest_x1/model_config.yaml), plus the fused
-# kernel path switch.
+# and training settings (configs/RAT_m2/movielenslatest_x1/
+# model_config.yaml), plus the fused kernel path switch. The train phase
+# sets model_root to a temporary directory.
 MLTAG_PARAMS = {
     "model": "RAT_m2", "model_id": "RAT_m2_movielenslatest_x1_10fold_retrieval",
     "dataset_id": "movielenslatest_x1_10fold_retrieval", "model_root": None,
@@ -58,6 +79,9 @@ MLTAG_PARAMS = {
     "dnn_activations": "relu", "use_wide": True, "batch_norm": False,
     "dropout": 0.0, "emb_dropout": 0.0, "net_dropout": 0.0,
     "batch_size": 4096, "metrics": ["AUC", "logloss"], "seed": 2021,
+    "embedding_regularizer": 0.03, "learning_rate": 1e-3, "optimizer": "adam",
+    "loss": "binary_crossentropy", "monitor": "AUC", "monitor_mode": "max",
+    "patience": 2, "every_x_epochs": 1, "save_best_only": True,
     "use_pallas": True,
 }
 # the dataset's retrieval block (dataset_config.yaml)
@@ -184,6 +208,14 @@ def serve(device, seed, pool, test, batch_size):
                 fused_vs_module_max_abs_err=plain_err, launches=launches)
 
 
+def _device_events(events):
+    """The profiler's kernels and copies on the device, without the
+    device-side ranges of user annotations (such as Optimizer.step),
+    which span kernels that are counted already."""
+    return [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation]
+
+
 def profile_serve(device, seed, pool, test, batch_size, rows=15):
     """Device time by kernel over one more pass of the main path
     (torch.profiler), and the device's busy and idle share of it."""
@@ -192,8 +224,7 @@ def profile_serve(device, seed, pool, test, batch_size, rows=15):
         t0 = time.perf_counter()
         _serve_path(device, seed, pool, test, batch_size)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = _device_events(prof.key_averages())
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     print("profile: wall {:.3f} ms, device busy {:.3f} ms, idle share {:.4f}".format(
         wall_ms, busy_ms, 1 - busy_ms / wall_ms))
@@ -295,15 +326,20 @@ def check_k1(rng, device):
             "shape": "B=4096 t=6 s=4 d=10 h=2 dh=10 (ML-Tag block)"}
 
 
+def _query_idf(db, qry, device):
+    """(qry [B, F] int32, its lucene IDF over the pool db [B, F] f32) on
+    the device, as the retrieval engine computes them."""
+    pack = bm25._pack_idf_dense(bm25._compute_idf_tables(db), device)
+    q = torch.from_numpy(np.ascontiguousarray(qry, dtype=np.int32)).to(device)
+    return q, bm25._idf_lookup_dense(q, *pack).contiguous()
+
+
 def _k2_case(db, qry, K, device):
     """Kernel and plain K2 on the same inputs, each finalized."""
     N, F = db.shape
     db_T = torch.zeros((F, max(N, K)), dtype=torch.int32, device=device)
     db_T[:, :N] = torch.from_numpy(db.T.astype(np.int32)).to(device)
-    tables = bm25._compute_idf_tables(db)
-    pack = bm25._pack_idf_dense(tables, device)
-    q = torch.from_numpy(np.ascontiguousarray(qry, dtype=np.int32)).to(device)
-    idf = bm25._idf_lookup_dense(q, *pack).contiguous()
+    q, idf = _query_idf(db, qry, device)
     got = bm25._finalize(*k2.bm25_topk(q, idf, db_T, N, K), False)
     want = bm25._finalize(*k2.bm25_topk_reference(q, idf, db_T, N, K), False)
     torch.cuda.synchronize()
@@ -344,6 +380,274 @@ def check_k2(rng, device, pool, test):
             "shape": "B=4096 F=3 K=5 against the {}-row pool".format(N)}
 
 
+def check_k3(rng, device, pool, test):
+    """K3 against its plain version, exactly; returns the table entry.
+    Its launches are those of its own entry point in the equality
+    checks: K3 is on no main path."""
+    used = MLTAG_RETRIEVAL["used_col_indices"]
+    chunk = MLTAG_RETRIEVAL["db_chunk_size"]
+    mltag = pool[:, used].astype(np.int64)
+    # (name, pool that gives the IDF, the chunk scored, queries)
+    cases = [("mltag_b4096_c50000", mltag, mltag[:chunk],
+              test[:4096, used].astype(np.int64))]
+    for name, B, C, F, vocab in (("f11_b777_c50001", 777, 50_001, 11, 50),
+                                 ("f3_heavy_ties", 1000, 20_000, 3, 6),
+                                 ("f16_b333_c9999", 333, 9_999, 16, 20)):
+        db = rng.randint(0, vocab, (C, F)).astype(np.int64)
+        qry = np.concatenate([db[rng.randint(0, C, B // 2)],
+                              rng.randint(0, vocab + 2, (B - B // 2, F))])
+        cases.append((name, db, db, qry))
+    k3.launches = 0
+    timed = None
+    for name, idf_pool, db, qry in cases:
+        q, idf = _query_idf(idf_pool, qry, device)
+        dbc = torch.from_numpy(np.ascontiguousarray(db, dtype=np.int32)).to(device)
+        got = k3.bm25_score_chunk(q, idf, dbc)
+        want = k3.bm25_score_chunk_reference(q, idf, dbc)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        print("K3 {:20s} B={:5d} C={:6d} F={:2d}: {} (torch.equal)".format(
+            name, len(qry), len(db), db.shape[1], "equal" if same else "DIFFER"))
+        if not same:
+            raise AssertionError("K3 disagrees with its plain version at " + name)
+        del got, want
+        if timed is None:
+            timed = (q, idf, dbc)
+    launches = k3.launches
+    q, idf, dbc = timed
+    ms = _cuda_ms(lambda: k3.bm25_score_chunk(q, idf, dbc), 20)
+    plain_ms = _cuda_ms(lambda: k3.bm25_score_chunk_reference(q, idf, dbc), 3)
+    B, F = q.shape
+    C = dbc.shape[0]
+    bound_ms, bound_by = _bound(B * C * 2 * F, B * C * 4 + C * F * 4 + B * F * 8)
+    return {"name": "bm25_score_chunk", "route": "cuda",
+            "source": "rat_tpu_torch/csrc/bm25_score_chunk.cu",
+            "replaces": "rat_tpu/ops/pallas/bm25_scan.py:60",
+            "launches": launches, "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,
+            "shape": "B=4096 F=3 against the first {} pool rows".format(C)}
+
+
+def check_k1_grad(rng, device):
+    """K1 under autograd: the Function's dx and weight gradients against
+    autograd of the plain version, for one random cotangent. Returns the
+    forward+backward times (ms) of both at the ML-Tag shape."""
+    shapes = [("mltag", 4096, 6, 4, 10, 2, 10), ("mltag_b4093", 4093, 6, 4, 10, 2, 10),
+              ("kkbox", 4096, 6, 14, 40, 8, 10), ("heads1_dh_eq_d", 4096, 6, 4, 10, 1, 10)]
+    timed = None
+    for name, B, t, s, d, heads, dim_head in shapes:
+        project_out = not (heads == 1 and dim_head == d)
+        p = _k1_weights(rng, d, heads, dim_head, 4 * d, project_out, device)
+        names = [n for n in k1.PARAM_ORDER if p[n] is not None]
+        x = torch.from_numpy(rng.randn(B, t, s, d).astype(np.float32)).to(device)
+        g = torch.from_numpy(rng.randn(B, t, s, d).astype(np.float32)).to(device)
+        inputs = [x.requires_grad_()] + [p[n].requires_grad_() for n in names]
+
+        def fwd_bwd(fn, inputs=inputs, p=p, heads=heads, dim_head=dim_head,
+                    project_out=project_out, g=g):
+            return torch.autograd.grad(fn(inputs[0], p, heads, dim_head, project_out),
+                                       inputs, g)
+
+        got = fwd_bwd(k1.cross_intra_block)
+        want = fwd_bwd(k1.cross_intra_block_reference)
+        torch.cuda.synchronize()
+        worst, worst_name, ok = 0.0, "", True
+        for n, a, b in zip(["x"] + names, got, want):
+            err = (a - b).abs()
+            ok = ok and bool((err <= 1e-4 + 2e-3 * b.abs()).all())
+            if err.max().item() >= worst:
+                worst, worst_name = err.max().item(), n
+        print("K1 grad {:14s} B={:5d} t={} s={:2d} d={:2d} h={} dh={:2d}: dx and {} "
+              "weight grads, max_abs_err {:.3e} (at {}) (rtol 2e-3, atol 1e-4) {}".format(
+                  name, B, t, s, d, heads, dim_head, len(names), worst, worst_name,
+                  "ok" if ok else "FAIL"))
+        if not ok:
+            raise AssertionError("K1's gradients disagree with the plain "
+                                 "version's at " + name)
+        if name == "mltag":
+            timed = fwd_bwd
+    return {"fwd_bwd_ms": _cuda_ms(lambda: timed(k1.cross_intra_block), 20),
+            "plain_fwd_bwd_ms": _cuda_ms(lambda: timed(k1.cross_intra_block_reference), 20)}
+
+
+def _grads(trainer, data, idx, valid, use_pallas):
+    """Loss and {name: gradient} of one step on the fused or the module
+    path, without an optimizer step."""
+    trainer.params = dict(trainer.params, use_pallas=use_pallas)
+    loss = trainer.loss_and_grads(data, idx, valid)
+    grads = {n: torch.zeros_like(w) if w.grad is None else w.grad.clone()
+             for n, w in trainer.model.named_parameters()}
+    return loss.item(), grads
+
+
+def one_step_check(trainer, data, batch_size):
+    """The fused train step against the module path from the same weights
+    and batch: losses within 1e-5, every gradient within rtol 2e-3 /
+    atol 1e-4 (float32 sums in another order; on a GPU the embedding
+    gradients also accumulate with atomics). Returns the worst errors."""
+    idx = torch.arange(batch_size, device=trainer.device)
+    fused_loss, fused = _grads(trainer, data, idx, batch_size, True)
+    module_loss, module = _grads(trainer, data, idx, batch_size, False)
+    trainer.params = dict(trainer.params, use_pallas=True)
+    trainer.optimizer.zero_grad(set_to_none=True)
+    loss_err = abs(fused_loss - module_loss)
+    worst, worst_name, ok = 0.0, "", loss_err <= 1e-5
+    for n in fused:
+        err = (fused[n] - module[n]).abs()
+        if not bool((err <= 1e-4 + 2e-3 * module[n].abs()).all()):
+            ok = False
+            print("one-step: gradient of {} differs by {:.3e}".format(n, err.max().item()))
+        if err.max().item() >= worst:
+            worst, worst_name = err.max().item(), n
+    print("one-step: fused loss {:.8f}, module loss {:.8f}, |diff| {:.3e} (tol 1e-5); "
+          "worst gradient error {:.3e} at {} (rtol 2e-3, atol 1e-4) {}".format(
+              fused_loss, module_loss, loss_err, worst, worst_name,
+              "ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError("one-step: the fused train step disagrees with "
+                             "the module path")
+    return {"loss_abs_err": loss_err, "grad_max_abs_err": worst}
+
+
+def _k2_batches(n_queries, retrieval):
+    return -(-n_queries // retrieval["qry_batch_size"])
+
+
+def train(device, seed, pool, test, batch_size, model_root):
+    """The training path as a user drives it: the pool rows as the train
+    split with X-fold self-retrieval, the request rows as the valid split
+    retrieved against it, a one-step check, Trainer.fit for one epoch,
+    then the best checkpoint reloaded and evaluated. Launch counts are
+    zeroed just before and read just after the generators (K2) and the
+    fit (K1). Returns (trainer, train generator, dict of results)."""
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    fm = mltag_feature_map()
+    common = dict(batch_size=batch_size, feature_map=fm, retrieval_augmented=True,
+                  device=device)
+    k2.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    train_gen = DataGenerator(data_array=pool, shuffle=True,
+                              retrieval_configs=dict(MLTAG_RETRIEVAL),
+                              retrieval_pool_fname="self", **common)
+    sync()
+    t1 = time.perf_counter()
+    valid_gen = DataGenerator(data_array=test, pool_array=pool,
+                              retrieval_configs=dict(MLTAG_RETRIEVAL),
+                              retrieval_pool_fname="mltag_train", **common)
+    sync()
+    t2 = time.perf_counter()
+    k2_launches = k2.launches
+
+    params = dict(MLTAG_PARAMS, batch_size=batch_size, seed=seed,
+                  model_root=model_root)
+    trainer = Trainer(fm, params, device=device)
+    one_step = one_step_check(trainer, trainer.device_split(train_gen), batch_size)
+
+    k1.launches = 0
+    sync()
+    t3 = time.perf_counter()
+    trainer.fit(train_gen, valid_gen, epochs=1)
+    sync()
+    t4 = time.perf_counter()
+    k1_launches = k1.launches
+
+    losses = np.asarray(trainer.step_losses)
+    if len(losses) != len(train_gen) or not np.all(np.isfinite(losses)):
+        raise AssertionError("train: {} step losses for {} batches, finite: {}".format(
+            len(losses), len(train_gen), bool(np.all(np.isfinite(losses)))))
+    n = min(20, len(losses) // 2)
+    first, last = float(losses[:n].mean()), float(losses[-n:].mean())
+    if not last < first:
+        raise AssertionError("train: the loss did not fall ({:.6f} over the first "
+                             "{} steps, {:.6f} over the last)".format(first, n, last))
+    best = trainer._best_metric
+    trainer.load_weights(trainer.checkpoint)
+    logs = trainer.evaluate(valid_gen)
+    if abs(logs["AUC"] - best) > 1e-6:
+        raise AssertionError("train: the reloaded best weights give AUC {} against "
+                             "the monitored {}".format(logs["AUC"], best))
+
+    retrieval = MLTAG_RETRIEVAL
+    folds = int(retrieval["split_type"].split("-")[0])
+    fold_size = -(-len(pool) // folds)
+    fold_rows = [len(pool[i * fold_size:(i + 1) * fold_size]) for i in range(folds)]
+    depth = trainer.model.depth
+    expected = {"cross_intra_block": depth * (len(train_gen) + len(valid_gen)),
+                "bm25_topk": sum(_k2_batches(r, retrieval) for r in fold_rows)
+                + _k2_batches(len(test), retrieval)} if cuda \
+        else {"cross_intra_block": 0, "bm25_topk": 0}
+    launches = {"cross_intra_block": k1_launches, "bm25_topk": k2_launches}
+    if launches != expected:
+        raise AssertionError("train: launches {} against the expected {}".format(
+            launches, expected))
+    return trainer, train_gen, dict(
+        {"train_rows": len(pool), "valid_rows": len(test), "steps": len(losses),
+         "valid_batches": len(valid_gen), "depth": depth,
+         "fold_retrieval_ms": (t1 - t0) * 1e3, "valid_retrieval_ms": (t2 - t1) * 1e3,
+         "epoch_s": t4 - t3,
+         "epoch_examples_per_s": len(pool) / (t4 - t3),
+         "first_steps_loss": first, "last_steps_loss": last,
+         "best_AUC": best, "AUC": logs["AUC"], "logloss": logs["logloss"]},
+        one_step=one_step, launches=launches)
+
+
+def profile_train(trainer, train_gen, seed, steps=20, rows=15):
+    """Steady-state ms per train step over ``steps`` steps (host clock
+    around a synchronize), then the same number of steps under
+    torch.profiler: device time by kernel, K1's forward kernel against
+    the autograd backward of the blocks, and the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    data = trainer._train_data
+    order = train_gen.epoch_index_batches(rng=np.random.RandomState(seed))
+    batches = [(torch.from_numpy(i).to(trainer.device), v)
+               for (i, v), _ in zip(order, range(2 * steps + 2))]
+    trainer.model.train()
+    for idx, valid in batches[:2]:
+        trainer.train_step(data, idx, valid)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for idx, valid in batches[2:steps + 2]:
+        trainer.train_step(data, idx, valid)
+    torch.cuda.synchronize()
+    ms_per_step = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for idx, valid in batches[steps + 2:]:
+            trainer.train_step(data, idx, valid)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    trainer.model.eval()
+    events = prof.key_averages()
+    kernels = _device_events(events)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    k1_fwd_ms = sum(e.self_device_time_total for e in kernels
+                    if "cross_intra_block_kernel" in e.key) / 1e3
+    k1_bwd_ms = sum(e.device_time_total for e in events
+                    if e.device_type == torch.autograd.DeviceType.CPU
+                    and e.key.startswith("autograd::engine::evaluate_function")
+                    and "CrossIntraBlockBackward" in e.key) / 1e3
+    print("train profile: {} steps, wall {:.3f} ms, device busy {:.3f} ms, idle share "
+          "{:.4f} (host slowed by the profiler; device {:.3f} ms per step against "
+          "{:.3f} ms of wall per step without it)".format(
+              steps, wall_ms, busy_ms, 1 - busy_ms / wall_ms, busy_ms / steps,
+              ms_per_step))
+    print("train profile: K1 forward kernel {:.3f} ms, block backward (autograd of the "
+          "plain block, recomputed) {:.3f} ms of device time".format(k1_fwd_ms, k1_bwd_ms))
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:rows]:
+        print("train profile: {:10.3f} ms {:6d} calls  {}".format(
+            e.self_device_time_total / 1e3, e.count, e.key[:100]))
+    return {"ms_per_step": ms_per_step,
+            "steady_examples_per_s": train_gen.batch_size / ms_per_step * 1e3,
+            "profile_wall_ms": wall_ms, "profile_busy_ms": busy_ms,
+            "idle_share": 1 - busy_ms / wall_ms,
+            "device_ms_per_step": busy_ms / steps,
+            "device_ops_per_step": sum(e.count for e in kernels) / steps,
+            "k1_forward_device_ms": k1_fwd_ms, "block_backward_device_ms": k1_bwd_ms}
+
+
 def _print_build_report():
     """ptxas's register and spill report, summed up per source."""
     for name in sorted(f for f in os.listdir(_build.BUILD_DIR) if f.endswith(".log")):
@@ -382,22 +686,39 @@ def main(argv=None):
     pool, test = mltag_arrays(args.seed, MLTAG_POOL_ROWS, MLTAG_TEST_ROWS)
     print("data: {} pool rows, {} requests in {:.1f} s".format(
         len(pool), len(test), time.perf_counter() - t0))
-    kernels = [check_k1(rng, device), check_k2(rng, device, pool, test)]
+    kernels = [check_k1(rng, device), check_k2(rng, device, pool, test),
+               check_k3(rng, device, pool, test)]
+    kernels[0].update(check_k1_grad(rng, device))
 
     batch_size = MLTAG_PARAMS["batch_size"]
     res = serve(device, args.seed, pool, test, batch_size)
-    launches = res.pop("launches")
+    serve_launches = res.pop("launches")
     print("serve: " + json.dumps(res))
-    print("serve launches: " + json.dumps(launches))
-    if launches["bm25_topk"] < 1:
+    print("serve launches: " + json.dumps(serve_launches))
+    if serve_launches["bm25_topk"] < 1:
         raise AssertionError("serve: K2 was never launched")
-    if launches["cross_intra_block"] != res["depth"] * res["batches"]:
+    if serve_launches["cross_intra_block"] != res["depth"] * res["batches"]:
         raise AssertionError("serve: K1 launched {} times, expected depth x "
-                             "batches = {}".format(launches["cross_intra_block"],
+                             "batches = {}".format(serve_launches["cross_intra_block"],
                                                    res["depth"] * res["batches"]))
-    for entry in kernels:
-        entry["launches"] = launches[entry["name"]]
     profile_serve(device, args.seed, pool, test, batch_size)
+
+    with tempfile.TemporaryDirectory() as model_root:
+        trainer, train_gen, res = train(device, args.seed, pool, test, batch_size,
+                                        model_root)
+        train_launches = res.pop("launches")
+        print("train: " + json.dumps(res))
+        print("train launches (asserted: K1 = depth x (train steps + valid batches), "
+              "K2 = query batches of the 10 folds + the valid split): "
+              + json.dumps(train_launches))
+        print("train steady state: " + json.dumps(
+            profile_train(trainer, train_gen, args.seed)))
+    for entry in kernels:
+        if entry["name"] in serve_launches:
+            by_path = {"serve": serve_launches[entry["name"]],
+                       "train": train_launches[entry["name"]]}
+            entry["launches"] = sum(by_path.values())
+            entry["launches_by_path"] = by_path
     print(smi.splitlines()[0])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,11 @@ package so each counterpart is easy to find:
 - split loading            -> rat_tpu_torch.data
 - NN layers and encoders   -> rat_tpu_torch.nn
 - RAT model (m2)           -> rat_tpu_torch.models
-- eval runtime             -> rat_tpu_torch.engine
-- Hopper kernels           -> rat_tpu_torch.ops (sources in csrc/)
+- train and eval runtime   -> rat_tpu_torch.engine (Trainer.fit, Adam
+                              with global-norm clipping in engine.optim)
+- Hopper kernels           -> rat_tpu_torch.ops (sources in csrc/): K1
+                              the fused encoder block (differentiable),
+                              K2 BM25 top-K, K3 dense BM25 chunk scores
 
 Entry points take ``device=None``, meaning ``"cuda"``; without a CUDA
 device they raise instead of falling back to the CPU. Pass

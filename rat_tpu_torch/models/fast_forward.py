@@ -4,15 +4,16 @@ rat_tpu.models.fast_forward).
 The RATModel forward with each encoder block run through kernel K1
 (ops/cross_intra_block.py::cross_intra_block) on the module's own
 parameters: on a CUDA device every block is one kernel launch, on the
-CPU the block's plain version. The Trainer routes here with
-``use_pallas: true`` (the JAX package's switch for its fused path).
+CPU the block's plain version. It is differentiable: the block's
+backward is autograd of its plain version, so the Trainer trains and
+scores through here with ``use_pallas: true`` (the JAX package's switch
+for its fused path). Callers that only score wrap it in
+``torch.no_grad()``.
 
 Unlike the JAX kernel, K1 takes any batch size, so the batch is not
 padded to a block multiple, and without ``project_out`` (heads == 1 and
 dim_head == d) the projection is skipped instead of fed zeros.
 """
-
-import torch
 
 from ..ops.cross_intra_block import cross_intra_block
 
@@ -39,7 +40,6 @@ def _block_params(block):
     }
 
 
-@torch.no_grad()
 def rat_m2_fast_forward(model, X, y):
     """model: a RATModel (default variant). Returns {"y_pred", "y_true"}
     equal to ``model(X, y)`` within float tolerance."""

@@ -1,6 +1,16 @@
 """Hand-written Hopper kernels (sources in rat_tpu_torch/csrc/), each
 beside its plain PyTorch version:
 
-- K1 ``cross_intra_block``: one fused RAT_m2 encoder block;
-- K2 ``bm25_topk``: fused BM25 score + top-K over the pool.
+- K1 ``cross_intra_block``: one fused RAT_m2 encoder block, under a
+  ``torch.autograd.Function`` whose backward is autograd of the plain
+  version;
+- K2 ``bm25_topk``: fused BM25 score + top-K over the pool;
+- K3 ``bm25_score_chunk``: dense BM25 scores against one pool chunk.
+
+Each module holds the wrapper of the same name, its plain version
+(``*_reference``) and the wrapper's ``launches`` count. The package
+exports the modules, not the wrappers, so that a wrapper's name does not
+hide the module that holds its count.
 """
+
+from . import bm25_score_chunk, bm25_topk, cross_intra_block  # noqa: F401

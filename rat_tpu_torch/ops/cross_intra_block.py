@@ -1,12 +1,15 @@
 """Kernel K1: one fused RAT_m2 cross/intra encoder block, and its plain
 PyTorch version.
 
-Port of rat_tpu/ops/pallas/cross_intra_block.py (forward only; the JAX
-backward is the VJP of the plain math, not a kernel).
-``cross_intra_block`` launches the CUDA kernel
-(csrc/cross_intra_block.cu) on CUDA tensors and runs
-``cross_intra_block_reference`` on CPU tensors; there is no other
-fallback.
+Port of rat_tpu/ops/pallas/cross_intra_block.py. ``cross_intra_block``
+is differentiable (``CrossIntraBlock``, a ``torch.autograd.Function``,
+the counterpart of the JAX ``custom_vjp``): its forward launches the
+CUDA kernel (csrc/cross_intra_block.cu) on CUDA tensors and runs
+``cross_intra_block_reference`` on CPU tensors, with no other fallback;
+its backward is autograd of the plain version, recomputed from the
+saved inputs, exactly as the JAX ``_fused_bwd`` takes ``jax.vjp`` of
+the plain math. The TPU package has no backward kernel, so neither
+does the port.
 
 ``x`` is [B, t, s, d] float32 as in the JAX package. ``params`` holds
 the 14 weights of ``PARAM_ORDER`` in ``nn.Linear`` layout ([out, in]):
@@ -76,7 +79,7 @@ def smem_bytes_per_sample(t, s, d, heads, dim_head, hidden):
     return fn(t, s, d, heads, dim_head, hidden)
 
 
-def cross_intra_block(x, params, heads, dim_head, project_out=True):
+def _forward(x, params, heads, dim_head, project_out):
     """Dispatch on x's device: CUDA -> kernel K1 (or raise), CPU ->
     :func:`cross_intra_block_reference`."""
     if x.device.type == "cpu":
@@ -131,3 +134,38 @@ def cross_intra_block(x, params, heads, dim_head, project_out=True):
     global launches
     launches += 1
     return out
+
+
+class CrossIntraBlock(torch.autograd.Function):
+    """K1 under autograd. The 14 weights come in as separate inputs in
+    ``PARAM_ORDER``, so that autograd reaches the module's parameters;
+    ``w_out*``/``b_out*`` may be None (no ``project_out``) and get None
+    gradients."""
+
+    @staticmethod
+    def forward(ctx, x, heads, dim_head, project_out, *weights):
+        ctx.block = (heads, dim_head, project_out)
+        ctx.save_for_backward(x, *weights)
+        return _forward(x, dict(zip(PARAM_ORDER, weights)), heads, dim_head,
+                        project_out)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x, *weights = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [None if t is None else t.detach().requires_grad_()
+                      for t in [x] + weights]
+            out = cross_intra_block_reference(
+                inputs[0], dict(zip(PARAM_ORDER, inputs[1:])), *ctx.block)
+            present = [t for t in inputs if t is not None]
+            grads = iter(torch.autograd.grad(out, present, grad_out))
+        dx, *dw = [None if t is None else next(grads) for t in inputs]
+        return (dx, None, None, None, *dw)
+
+
+def cross_intra_block(x, params, heads, dim_head, project_out=True):
+    """One block, differentiable in ``x`` and every weight of
+    ``params``: the kernel on CUDA tensors, the plain version on CPU
+    tensors, autograd of the plain version backward."""
+    return CrossIntraBlock.apply(x, heads, dim_head, project_out,
+                                 *(params.get(name) for name in PARAM_ORDER))

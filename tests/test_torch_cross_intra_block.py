@@ -1,11 +1,14 @@
 """Kernel K1's plain version (rat_tpu_torch.ops.cross_intra_block)
-against the JAX package's ``cross_intra_block_reference``.
+against the JAX package's ``cross_intra_block_reference``, forward and,
+through the port's ``torch.autograd.Function``, backward against
+``jax.vjp``.
 
 Same float32 inputs from a seeded numpy RNG go through both; the port's
 weights are the JAX ones transposed to nn.Linear layout. Tolerance
 rtol 1e-5 / atol 1e-6: the two differ only in the order of float32
 sums (tests/test_pallas.py holds the flax block to the same)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -82,3 +85,73 @@ def test_cpu_wrapper_is_the_plain_version():
     torch.testing.assert_close(
         k1.cross_intra_block(x, p, heads, dim_head),
         k1.cross_intra_block_reference(x, p, heads, dim_head), rtol=0, atol=0)
+
+
+# the forward shapes, plus a batch that is not a multiple of 8 (the JAX
+# kernel's block; the port's takes any B)
+GRAD_SHAPES = dict(SHAPES, mltag_b13=(13, 6, 4, 10, 2, 10))
+
+
+@pytest.mark.parametrize("name", sorted(GRAD_SHAPES))
+def test_function_gradients_match_jax_vjp(name):
+    """dx and every weight gradient of the autograd.Function equal
+    jax.vjp of the JAX plain block for the same cotangent, within rtol
+    1e-5 and an atol of 1e-6 of the gradient's largest magnitude. The
+    atol scales because a backward's float32 sums carry noise of that
+    size in every implementation: at the ML-Tag shape, the JAX package's
+    own float32 dx is 7.6e-6 from the float64 value (scale 18), and its
+    weight gradients up to 6.4e-7 of their scale; a fixed atol of 1e-6
+    fails on 0.1-0.4% of the elements for that noise alone. Without
+    project_out the port's w_out/b_out are None and get no gradient;
+    JAX's zero placeholders get zero gradients."""
+    B, t, s, d, heads, dim_head = GRAD_SHAPES[name]
+    project_out = not (heads == 1 and dim_head == d)
+    rng = np.random.RandomState(11)
+    x = rng.randn(B, t, s, d).astype(np.float32)
+    p = _weights(rng, d, heads, dim_head, 4 * d, project_out)
+    g = rng.randn(B, t, s, d).astype(np.float32)
+
+    @jax.jit
+    def jax_vjp(x_, p_, g_):
+        return jax.vjp(lambda a, b: jax_block(a, b, heads, dim_head,
+                                              project_out=project_out), x_, p_)[1](g_)
+
+    jdx, jdp = jax_vjp(jnp.asarray(x), {k: jnp.asarray(v) for k, v in p.items()},
+                       jnp.asarray(g))
+
+    xt = torch.from_numpy(x).requires_grad_()
+    tp = _to_torch(p, project_out)
+    for w in tp.values():
+        if w is not None:
+            w.requires_grad_()
+    out = k1.cross_intra_block(xt, tp, heads, dim_head, project_out=project_out)
+    assert type(out.grad_fn).__name__ == "CrossIntraBlockBackward"
+    out.backward(torch.from_numpy(g))
+
+    def close(got, want, name):
+        np.testing.assert_allclose(got, want, rtol=1e-5,
+                                   atol=1e-6 * np.abs(want).max(), err_msg=name)
+
+    close(xt.grad.numpy(), np.asarray(jdx), "x")
+    for k in k1.PARAM_ORDER:
+        want = np.asarray(jdp[k])
+        if tp[k] is None:
+            assert not project_out and not want.any(), k
+            continue
+        got = tp[k].grad.numpy()
+        close(got.T if got.ndim == 2 else got, want, k)
+
+
+def test_function_under_no_grad_is_the_forward():
+    B, t, s, d, heads, dim_head = SHAPES["mltag"]
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy(rng.randn(B, t, s, d).astype(np.float32))
+    p = _to_torch(_weights(rng, d, heads, dim_head, 4 * d, True), True)
+    for w in p.values():
+        w.requires_grad_()
+    with torch.no_grad():
+        out = k1.cross_intra_block(x, p, heads, dim_head)
+    assert out.grad_fn is None and not out.requires_grad
+    torch.testing.assert_close(
+        out, k1.cross_intra_block_reference(x, p, heads, dim_head).detach(),
+        rtol=0, atol=0)

@@ -1,6 +1,7 @@
-"""The port's scoring path and chip_smoke import without JAX, the JAX
-package, or the host packages the GPU machine lacks (pandas, h5py,
-sklearn, yaml): run in a subprocess whose import system refuses them."""
+"""The port's scoring and training paths and chip_smoke import without
+JAX, the JAX package, or the host packages the GPU machine lacks
+(pandas, h5py, sklearn, yaml): run in a subprocess whose import system
+refuses them."""
 
 import os
 import subprocess
@@ -24,6 +25,8 @@ import chip_smoke
 import rat_tpu_torch
 from rat_tpu_torch.data.loader import DataGenerator, h5_generator
 from rat_tpu_torch.engine import Trainer
+from rat_tpu_torch.engine.optim import get_optimizer, regularization_loss
+from rat_tpu_torch.ops.bm25_score_chunk import bm25_score_chunk
 from rat_tpu_torch.models import build_model, rat_m2_fast_forward
 from rat_tpu_torch.retrieval import bm25_topk_retrieval
 from rat_tpu_torch.utils import load_config

@@ -52,7 +52,9 @@ def _compare(jmodel, variables, model, X, y, nbr_mask=None):
     if nbr_mask is None:
         jf = np.asarray(jfast(variables["params"], jmodel, jnp.asarray(X),
                               jnp.asarray(y), use_kernel=False)["y_pred"])
-        fast = rat_m2_fast_forward(model, Xt, yt)["y_pred"].numpy()
+        # the fused path is differentiable: score it as the Trainer does
+        with torch.no_grad():
+            fast = rat_m2_fast_forward(model, Xt, yt)["y_pred"].numpy()
         np.testing.assert_allclose(fast, jf, **TOL)
         np.testing.assert_allclose(fast, want, **TOL)
 
