@@ -1,21 +1,30 @@
 """Smoke run of rat_tpu_torch on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py --parent DIR   # K2 and K1 against earlier sources
+
+With --parent, only the build and one comparison run: the K2 and K1
+sources in DIR (for example those of commit 69cda9a, unpacked with
+``git archive 69cda9a rat_tpu_torch/csrc | tar -x -C build/old``) are
+built beside the current ones and timed in turns on the same card.
 
 Phases, any failure exits non-zero:
 
 1. build   — compile the CUDA kernels of rat_tpu_torch/csrc/ into
-             build/kernels/ (one nvcc per source, in parallel).
+             build/kernels/ (one nvcc per source, in parallel); fails if
+             ptxas reports spill stores in a K1 or K2 kernel, and prints
+             the registers and CTAs per SM of the main path's K1 and K2.
 2. kernels — hold each kernel against its plain PyTorch version on the
              card: K1 (fused cross/intra block) at the ML-Tag, KKBox and
              Tmall block shapes and heads=1/dim_head=d, rtol 1e-4 /
              atol 1e-5; K2 (BM25 score + top-K) exactly, after the
              zero-score drop, on tie-heavy pools, K above the pool size
-             and 4096 queries against the serving pool; K3 (dense BM25
+             and 4096 and 5000 queries against the serving pool; K3 (dense BM25
              chunk scores) exactly (torch.equal) at 4096 requests x
              50,000 pool rows, F=11 with ragged B and C, heavy ties and
-             F=16. Each is timed with CUDA events beside its plain
-             version.
+             F=16. Each kernel is timed on the device (torch.profiler's
+             kernel time; K2 at 4096 queries and at the main path's
+             5000), its plain version with CUDA events.
 3. K1 grad — K1 under autograd (ops.cross_intra_block.CrossIntraBlock):
              dx and the 14 weight gradients against autograd of the
              plain version at the ML-Tag (B=4096 and 4093), KKBox and
@@ -46,6 +55,7 @@ exits non-zero before printing either.
 """
 
 import argparse
+import ctypes
 import json
 import os
 import re
@@ -247,6 +257,22 @@ def _cuda_ms(fn, reps, warmup=1):
     return start.elapsed_time(end) / reps
 
 
+def _kernel_ms(fn, reps, key):
+    """Device time of one call of a kernel's wrapper: the time of the
+    kernels whose name holds ``key``, summed by torch.profiler over
+    ``reps`` calls, over ``reps``. Unlike CUDA events around the calls,
+    it leaves out the gaps while the host prepares each launch."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in _device_events(prof.key_averages())
+               if key in e.key) / 1e3 / reps
+
+
 def _bound(ops, nbytes):
     t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
@@ -311,7 +337,11 @@ def check_k1(rng, device):
         if name == "mltag":
             timed = (x, p, heads, dim_head, project_out, (B, t, s, d, hidden))
     x, p, heads, dim_head, project_out, (B, t, s, d, hidden) = timed
-    ms = _cuda_ms(lambda: k1.cross_intra_block(x, p, heads, dim_head, project_out), 50)
+    def call():
+        return k1.cross_intra_block(x, p, heads, dim_head, project_out)
+
+    ms = _kernel_ms(call, 50, "cross_intra_block_kernel")
+    call_ms = _cuda_ms(call, 50)
     plain_ms = _cuda_ms(lambda: k1.cross_intra_block_reference(
         x, p, heads, dim_head, project_out), 20)
     wbytes = sum(w.numel() * 4 for w in p.values() if w is not None)
@@ -323,7 +353,8 @@ def check_k1(rng, device):
             "replaces": "rat_tpu/ops/pallas/cross_intra_block.py:206",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "shape": "B=4096 t=6 s=4 d=10 h=2 dh=10 (ML-Tag block)"}
+            "shape": "B=4096 t=6 s=4 d=10 h=2 dh=10 (ML-Tag block)",
+            "call_ms": call_ms}
 
 
 def _query_idf(db, qry, device):
@@ -334,10 +365,15 @@ def _query_idf(db, qry, device):
     return q, bm25._idf_lookup_dense(q, *pack).contiguous()
 
 
-def _k2_case(db, qry, K, device):
-    """Kernel and plain K2 on the same inputs, each finalized."""
+def _k2_case(db, qry, K, device, pad4=False):
+    """Kernel and plain K2 on the same inputs, each finalized. With
+    ``pad4`` the pool's columns are padded to a multiple of 4, as
+    retrieval/bm25.py pads them (the kernel's 16-byte tile copies);
+    without, the kernel takes its 4-byte copies."""
     N, F = db.shape
-    db_T = torch.zeros((F, max(N, K)), dtype=torch.int32, device=device)
+    cols = max(N, K)
+    db_T = torch.zeros((F, cols + (-cols) % 4 if pad4 else cols), dtype=torch.int32,
+                       device=device)
     db_T[:, :N] = torch.from_numpy(db.T.astype(np.int32)).to(device)
     q, idf = _query_idf(db, qry, device)
     got = bm25._finalize(*k2.bm25_topk(q, idf, db_T, N, K), False)
@@ -347,8 +383,20 @@ def _k2_case(db, qry, K, device):
     return same, (q, idf, db_T, N, K)
 
 
+def _k2_times(q, idf, db_T, N, K):
+    """(kernel ms, plain ms, bound ms, bound by) of K2 on these inputs;
+    the kernel's time is that of its scan and merge on the device. The
+    bound counts one compare and one add per (query, row, field) as
+    two operations against the float32 peak, as PERF.md explains."""
+    B, F = q.shape
+    ms = _kernel_ms(lambda: k2.bm25_topk(q, idf, db_T, N, K), 20, "bm25_")
+    plain_ms = _cuda_ms(lambda: k2.bm25_topk_reference(q, idf, db_T, N, K), 2)
+    return (ms, plain_ms) + _bound(B * N * 2 * F, F * N * 4 + B * F * 8 + B * K * 8)
+
+
 def check_k2(rng, device, pool, test):
-    """K2 against its plain version, exactly; returns the table entry."""
+    """K2 against its plain version, exactly; returns the table entry,
+    timed at 4096 queries and at the main path's 5000-query batch."""
     cases = []
     for name, N, Q, F, vocab, K in (("f3_heavy_ties", 20_000, 1000, 3, 6, 5),
                                     ("f11_pool_not_tile_multiple", 50_001, 777, 11, 50, 7),
@@ -357,27 +405,34 @@ def check_k2(rng, device, pool, test):
         db = rng.randint(0, vocab, (N, F)).astype(np.int64)
         qry = np.concatenate([db[rng.randint(0, N, Q // 2)],
                               rng.randint(0, vocab + 2, (Q - Q // 2, F))])
-        cases.append((name, db, qry, K))
+        cases.append((name, db, qry, K, False))
     used = MLTAG_RETRIEVAL["used_col_indices"]
-    cases.append(("mltag_b4096_pool", pool[:, used].astype(np.int64),
-                  test[:4096, used].astype(np.int64), MLTAG_RETRIEVAL["topK"]))
-    for name, db, qry, K in cases:
-        same, args = _k2_case(db, qry, K, device)
+    batch = MLTAG_RETRIEVAL["qry_batch_size"]
+    for B in (4096, batch):
+        cases.append(("mltag_b{}_pool".format(B), pool[:, used].astype(np.int64),
+                      test[:B, used].astype(np.int64), MLTAG_RETRIEVAL["topK"], True))
+    timed = {}
+    for name, db, qry, K, pad4 in cases:
+        same, args = _k2_case(db, qry, K, device, pad4)
         print("K2 {:28s} N={:8d} B={:5d} F={:2d} K={:2d}: {} (exact)".format(
             name, len(db), len(qry), db.shape[1], K, "equal" if same else "DIFFER"))
         if not same:
             raise AssertionError("K2 disagrees with its plain version at " + name)
-    q, idf, db_T, N, K = args
-    ms = _cuda_ms(lambda: k2.bm25_topk(q, idf, db_T, N, K), 20)
-    plain_ms = _cuda_ms(lambda: k2.bm25_topk_reference(q, idf, db_T, N, K), 2)
-    B, F = q.shape
-    bound_ms, bound_by = _bound(B * N * 2 * F, F * N * 4 + B * F * 8 + B * K * 8)
+        if pad4:
+            timed[len(qry)] = args
+    N = len(pool)
+    ms, plain_ms, bound_ms, bound_by = _k2_times(*timed[4096])
+    ms_b, plain_ms_b, bound_ms_b, _ = _k2_times(*timed[batch])
+    print("K2 at {} queries: {:.4f} ms (bound {:.4f} ms); at {}: {:.4f} ms (bound "
+          "{:.4f} ms)".format(4096, ms, bound_ms, batch, ms_b, bound_ms_b))
     return {"name": "bm25_topk", "route": "cuda",
             "source": "rat_tpu_torch/csrc/bm25_topk.cu",
             "replaces": "rat_tpu/ops/pallas/bm25_scan.py:193",
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "shape": "B=4096 F=3 K=5 against the {}-row pool".format(N)}
+            "shape": "B=4096 F=3 K=5 against the {}-row pool".format(N),
+            "ms_b{}".format(batch): ms_b, "plain_ms_b{}".format(batch): plain_ms_b,
+            "bound_ms_b{}".format(batch): bound_ms_b}
 
 
 def check_k3(rng, device, pool, test):
@@ -415,7 +470,7 @@ def check_k3(rng, device, pool, test):
             timed = (q, idf, dbc)
     launches = k3.launches
     q, idf, dbc = timed
-    ms = _cuda_ms(lambda: k3.bm25_score_chunk(q, idf, dbc), 20)
+    ms = _kernel_ms(lambda: k3.bm25_score_chunk(q, idf, dbc), 20, "bm25_score_chunk")
     plain_ms = _cuda_ms(lambda: k3.bm25_score_chunk_reference(q, idf, dbc), 3)
     B, F = q.shape
     C = dbc.shape[0]
@@ -648,22 +703,170 @@ def profile_train(trainer, train_gen, seed, steps=20, rows=15):
             "k1_forward_device_ms": k1_fwd_ms, "block_backward_device_ms": k1_bwd_ms}
 
 
-def _print_build_report():
-    """ptxas's register and spill report, summed up per source."""
-    for name in sorted(f for f in os.listdir(_build.BUILD_DIR) if f.endswith(".log")):
-        with open(os.path.join(_build.BUILD_DIR, name)) as fh:
-            text = fh.read()
-        regs = [int(n) for n in re.findall(r"Used (\d+) registers", text)]
-        spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores", text)]
-        print("ptxas {}: {} kernels, at most {} registers and {} bytes of "
-              "spill stores per thread".format(name[:-4], len(regs),
-                                               max(regs, default=0),
-                                               max(spills, default=0)))
+def _ptxas_report(name):
+    """{kernel (mangled): (registers, bytes of spill stores)} from
+    ptxas's report of csrc/<name>.cu."""
+    with open(os.path.join(_build.BUILD_DIR, name + ".log")) as fh:
+        text = fh.read()
+    out, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        fn = m.group(1) if m else fn
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and fn:
+            out[fn] = (out.get(fn, (0, 0))[0], int(m.group(1)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out[fn] = (int(m.group(1)), out.get(fn, (0, 0))[1])
+    return out
+
+
+def _print_build_report(device):
+    """ptxas's register and spill report, summed up per source, then the
+    registers and CTAs per SM of the main path's K1 and K2 kernels.
+    Fails if any kernel of K1 or K2 spills."""
+    spilled = []
+    for name in sorted(f[:-4] for f in os.listdir(_build.BUILD_DIR) if f.endswith(".log")):
+        report = _ptxas_report(name)
+        regs = max((r for r, _ in report.values()), default=0)
+        spills = max((sp for _, sp in report.values()), default=0)
+        print("ptxas {}: {} kernels, at most {} registers and {} bytes of spill stores "
+              "per thread".format(name, len(report), regs, spills))
+        if name in ("bm25_topk", "cross_intra_block"):
+            spilled += [fn for fn, (_, sp) in report.items() if sp > 0]
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    k2_report, k1_report = _ptxas_report("bm25_topk"), _ptxas_report("cross_intra_block")
+
+    def regs(report, pattern):
+        return [r for fn, (r, _) in report.items() if pattern in fn]
+
+    qpc, slots = k2._occupancy(3, MLTAG_RETRIEVAL["topK"], device.index)
+    print("K2 main path (F=3, K=5): scan {} registers, {} CTAs of {} queries per SM; "
+          "merge {} registers".format(regs(k2_report, "bm25_scan_kernelILi3EE"),
+                                      slots // sms, qpc,
+                                      regs(k2_report, "bm25_merge_kernel")))
+    warps, staged, per_sm = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    fn = _build.load("cross_intra_block").cross_intra_block_occupancy
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.restype = ctypes.c_int
+    d, heads, dh = (MLTAG_PARAMS[k] for k in ("embedding_dim", "num_heads", "dim_head"))
+    _build.check(fn(1 + MLTAG_RETRIEVAL["topK"], len(MLTAG_VOCAB) + 1, d, heads, dh,
+                    MLTAG_PARAMS["scale_dim"] * d, 1, ctypes.byref(warps),
+                    ctypes.byref(staged), ctypes.byref(per_sm)), "K1 occupancy")
+    print("K1 main path (d=10, dh=10): {} registers, {} CTAs of {} warps per SM, "
+          "weights {}".format(regs(k1_report, "cross_intra_block_kernelILi10ELi10ELb{}E".format(
+                                  staged.value)),
+                              per_sm.value, warps.value,
+                              "in shared memory" if staged.value else "read from L1/L2"))
+    if spilled:
+        raise AssertionError("ptxas: K1/K2 kernels spill registers: {}".format(spilled))
+
+
+def _build_parent(src_dir):
+    """ctypes handles of an earlier K2 and K1 (bm25_topk.cu and
+    cross_intra_block.cu in src_dir), built with the port's flags into
+    build/parent/."""
+    out_dir = os.path.join(os.path.dirname(_build.BUILD_DIR), "parent")
+    os.makedirs(out_dir, exist_ok=True)
+    jobs = {}
+    for name in ("bm25_topk", "cross_intra_block"):
+        out = os.path.join(out_dir, name + ".so")
+        jobs[name] = (out, subprocess.Popen(
+            [_build._nvcc()] + _build.NVCC_FLAGS
+            + ["-o", out, os.path.join(src_dir, name + ".cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (out, proc) in jobs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc failed for the parent's {}:\n{}".format(name, text))
+        libs[name] = ctypes.CDLL(out)
+    return libs
+
+
+def _parent_k2(lib, q, idf, db_T, N, K):
+    """The earlier K2 through its own C interface and launch geometry
+    (one query per thread, parts for ~8 CTAs per SM, [P, B, K] scratch)."""
+    B, F = q.shape
+    C = db_T.shape[1]
+    tile = lib.bm25_topk_tile_rows()
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    parts = max(1, min(-(-8 * sms // -(-B // lib.bm25_topk_threads())), -(-C // tile),
+                       65535))
+    rows = -(-C // parts)
+    parts = -(-C // rows)
+    out_v = torch.empty((B, K), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((B, K), dtype=torch.int32, device=q.device)
+    part_v = torch.empty((parts if parts > 1 else 0, B, K), dtype=torch.float32,
+                         device=q.device)
+    part_i = torch.empty_like(part_v, dtype=torch.int32)
+    fn = lib.bm25_topk_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 5
+    fn.restype = ctypes.c_int
+    _build.check(fn(q.data_ptr(), idf.data_ptr(), db_T.data_ptr(), B, F, C, N, K, parts,
+                    rows, part_v.data_ptr(), part_i.data_ptr(), out_v.data_ptr(),
+                    out_i.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream),
+                 "parent bm25_topk")
+    return out_v, out_i
+
+
+def _parent_k1(lib, x, p, heads, dim_head, project_out):
+    """The earlier K1 through its C interface (the same as K1's)."""
+    B, t, s, d = x.shape
+    out = torch.empty_like(x)
+    ptrs = [None if p.get(n) is None else p[n].data_ptr() for n in k1.PARAM_ORDER]
+    fn = lib.cross_intra_block_launch
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    _build.check(fn(x.data_ptr(), out.data_ptr(), B, t, s, d, heads, dim_head,
+                    p["ff_w1"].shape[0], int(project_out), (ctypes.c_void_p * 14)(*ptrs),
+                    torch.cuda.current_stream(x.device).cuda_stream), "parent K1")
+    return out
+
+
+def compare_parent(src_dir, seed, device):
+    """K2 and K1 against an earlier version of them (their sources in
+    src_dir), on one card, in turns (earlier, now, now, earlier), device
+    time by torch.profiler, at the main path's shapes; each also checked
+    equal (K2) or close (K1) to the earlier one's output."""
+    libs = _build_parent(src_dir)
+    rng = np.random.RandomState(seed)
+    pool, test = mltag_arrays(seed, MLTAG_POOL_ROWS, MLTAG_TEST_ROWS)
+    used = MLTAG_RETRIEVAL["used_col_indices"]
+    K = MLTAG_RETRIEVAL["topK"]
+    cases = []
+    for B in (4096, MLTAG_RETRIEVAL["qry_batch_size"]):
+        _, (q, idf, db_T, N, _) = _k2_case(pool[:, used].astype(np.int64),
+                                           test[:B, used].astype(np.int64), K, device, True)
+        cases.append(("K2 B={} against {} rows".format(B, N), "bm25_",
+                      lambda q=q, idf=idf, db_T=db_T, N=N: _parent_k2(
+                          libs["bm25_topk"], q, idf, db_T, N, K),
+                      lambda q=q, idf=idf, db_T=db_T, N=N: k2.bm25_topk(q, idf, db_T, N, K)))
+    d, heads, dh = (MLTAG_PARAMS[k] for k in ("embedding_dim", "num_heads", "dim_head"))
+    p = _k1_weights(rng, d, heads, dh, MLTAG_PARAMS["scale_dim"] * d, True, device)
+    x = torch.from_numpy(rng.randn(4096, 1 + K, len(used) + 1, d).astype(np.float32)).to(device)
+    cases.append(("K1 B=4096 ML-Tag block", "cross_intra_block_kernel",
+                  lambda: _parent_k1(libs["cross_intra_block"], x, p, heads, dh, True),
+                  lambda: k1.cross_intra_block(x, p, heads, dh, True)))
+    for label, key, before, now in cases:
+        a, b = before(), now()
+        torch.cuda.synchronize()
+        same = all(torch.equal(u, v) for u, v in zip(a, b)) if key == "bm25_" \
+            else bool(torch.allclose(a, b, rtol=1e-4, atol=1e-5))
+        if not same:
+            raise AssertionError("{}: the two versions disagree".format(label))
+        ms = [_kernel_ms(f, 20, key) for f in (before, now, now, before)]
+        print("parent vs now, {}: device ms {:.4f} / {:.4f} / {:.4f} / {:.4f} "
+              "(earlier, now, now, earlier), {:.2f}x".format(
+                  label, *ms, (ms[0] + ms[3]) / (ms[1] + ms[2])))
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--parent", metavar="DIR",
+                    help="only time K2 and K1 against earlier sources of them "
+                         "(bm25_topk.cu and cross_intra_block.cu in DIR)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -679,7 +882,11 @@ def main(argv=None):
     t0 = time.perf_counter()
     _build.build_all()
     print("build: {:.1f} s".format(time.perf_counter() - t0))
-    _print_build_report()
+    _print_build_report(device)
+    if args.parent:
+        compare_parent(args.parent, args.seed, device)
+        print(smi.splitlines()[0])
+        return 0
 
     rng = np.random.RandomState(args.seed)
     t0 = time.perf_counter()

@@ -16,22 +16,31 @@
 //
 // What bounds it on the H100: operations. At the ML-Tag shape (t=6,
 // s=4, d=10, h=2, dh=10) a block is about 1.3e5 float32 FLOPs per sample
-// against 2 * 960 bytes of activations in and out, some 70 FLOPs per
-// byte, and the weights (a few KB) stay in L1/L2. Its widths (d=10,
-// dh=10) are far below a tensor-core tile, so this first version uses
-// the FP32 pipes.
+// against 2 * 960 bytes of activations in and out, and the weights
+// (10 KB) are read by every sample. Its widths are far below a
+// tensor-core tile, and the port keeps TF32 off, so it runs on the FP32
+// pipes.
 //
-// Design: one CTA holds a few whole samples in shared memory and runs
-// the whole block on them, so activations touch device memory once in
-// and once out. Per sample it keeps x, an accumulator for the attention
-// output and a scratch area that holds either one head's q/k/v with the
-// LayerNorm output, the head output and the softmax row weights, or the
-// FF hidden layer. Only one head's q/k/v is resident at a time, so wide
-// head counts (Tmall: h=32, 3*h*dh = 960 floats per token) fit. Shapes
-// are run-time values; the launch refuses a sample that needs more than
-// the 227 KB of shared memory a block may have. Threads stride over the
-// (sample, token, feature) items of each phase, with a barrier between
-// phases.
+// Design: a warp owns whole samples and a lane owns tokens (lane,
+// lane + 32, ...), so that no phase inside a sample needs more than a
+// __syncwarp and the CTA has no barrier in its sample loop.
+// - A token's row lives in its lane's registers while the lane works on
+//   it: LayerNorm needs no cross-lane reduction, the lane's q and its
+//   head output stay in registers, and the FF consumes each hidden unit
+//   as it is made (hidden layer never stored).
+// - Shared by the warp's lanes: the sample's x and LayerNorm output, and
+//   one head's k and v; rows are padded to an odd number of floats, so
+//   lanes that read different tokens' rows hit different banks.
+// - Weights: staged once per CTA into shared memory, rows padded to a
+//   multiple of 4 floats and read as float4 broadcasts (every lane reads
+//   the same address), when they fit a 64 KB budget (ML-Tag: 10 KB);
+//   else read from global memory, where the same broadcast loads hit L1.
+// - Persistent CTAs: the grid is the number of CTAs that fit on the card
+//   (at most one per 8 samples), and each warp walks over samples, so
+//   the weights are staged once per CTA.
+// - Widths are compile-time (d, dim_head) in {(10, 10), (40, 10)}, the
+//   widths of the repository's configs (with_width); t, s, heads and
+//   hidden are run-time. The wrapper refuses other widths.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -39,10 +48,9 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kWarps = 8;   // warps per CTA, at most
 constexpr int kMaxSmemBytes = 232448;   // 227 KB opt-in per block
-constexpr int kTargetSmemBytes = 48 * 1024;
-constexpr int kMaxSamplesPerBlock = 8;
+constexpr int kWeightSmemBytes = 64 * 1024;
 
 struct Weights {
   const float *ln1_w, *ln1_b, *w_qkv1, *w_out1, *b_out1;
@@ -51,178 +59,362 @@ struct Weights {
 };
 
 struct Dims {
-  int t, s, d, heads, dh, hidden, project_out;
-  int n, inner, L, per_sample;   // derived
-  float scale;                   // dim_head ** -0.5, rounded once from double
+  int t, s, heads, hidden, project_out, n, inner;
+  float scale;   // dim_head ** -0.5, rounded once from double
 };
 
-__host__ __device__ inline int scratch_floats(const Dims& D) {
-  const int attn = D.n * D.d + D.n * 3 * D.dh + D.n * D.dh + D.n * D.L;
-  const int ff = D.n * D.hidden;
-  return attn > ff ? attn : ff;
+Dims make_dims(int t, int s, int heads, int dh, int hidden, int project_out) {
+  return Dims{t, s, heads, hidden, project_out, t * s, heads * dh,
+              (float)(1.0 / sqrt((double)dh))};
 }
 
-Dims make_dims(int t, int s, int d, int heads, int dh, int hidden, int project_out) {
-  Dims D{t, s, d, heads, dh, hidden, project_out, 0, 0, 0, 0, 0.f};
-  D.n = t * s;
-  D.scale = (float)(1.0 / sqrt((double)dh));
-  D.inner = heads * dh;
-  D.L = t > s ? t : s;
-  D.per_sample = 2 * D.n * D.d + scratch_floats(D);
-  return D;
+__host__ __device__ constexpr int pad4(int v) { return (v + 3) & ~3; }
+
+// Where the kernel reads each weight. Row r of a matrix starts at
+// base + r * row stride; its elements are contiguous (V4: padded to a
+// multiple of 4 floats, 16-byte aligned) except w2, whose hidden unit k
+// has its D outputs at w2 + k * w2_ks + e * w2_es.
+struct Layout {
+  const float *ln_w[2], *ln_b[2], *qkv[2], *wo[2], *bo[2];
+  const float *w1, *b1, *w2, *b2;
+  int qkv_rs, wo_hs, wo_es, w1_rs, w2_ks, w2_es;
+};
+
+// Floats of the staged weights (rows padded to 4).
+template <int D, int DH>
+__host__ __device__ int staged_floats(int heads, int hidden, int project_out) {
+  const int inner = heads * DH;
+  int n = 4 * pad4(D) + 2 * 3 * inner * pad4(D) + pad4(hidden) + 2 * hidden * pad4(D)
+          + pad4(D);
+  if (project_out) n += 2 * heads * D * pad4(DH) + 2 * pad4(D);
+  return n;
 }
 
-// Attention sub-block with its residual, on every sample of the CTA.
-// over_t = false: intra (sequence over s); true: cross (over t).
-__device__ void attention(float* smem, int nsamp, const Dims& D,
-                          const float* __restrict__ ln_w, const float* __restrict__ ln_b,
-                          const float* __restrict__ w_qkv, const float* __restrict__ w_out,
-                          const float* __restrict__ b_out, bool over_t) {
-  const int n = D.n, d = D.d, dh = D.dh, L = over_t ? D.t : D.s;
-  const int ps = D.per_sample;
-  const int qkv_w = 3 * dh;
-  // scratch layout: xn [n, d] | qkv [n, 3dh] | o [n, dh] | p [n, L]
-  const int off_xn = 2 * n * d, off_qkv = off_xn + n * d;
-  const int off_o = off_qkv + n * qkv_w, off_p = off_o + n * dh;
+// Floats of one warp's sample area: x and LayerNorm rows [n][D | 1],
+// one head's k and v rows [n][DH | 1].
+template <int D, int DH>
+__host__ __device__ int warp_floats(int n) {
+  return n * (2 * (D | 1) + 2 * (DH | 1));
+}
 
-  for (int it = threadIdx.x; it < nsamp * n; it += blockDim.x) {
-    const int j = it / n, tok = it - j * n;
-    const float* x = smem + j * ps + tok * d;
-    float* xn = smem + j * ps + off_xn + tok * d;
+template <int D, int DH>
+__device__ __forceinline__ Layout global_layout(const Dims& Dm, const Weights& W) {
+  Layout L;
+  L.ln_w[0] = W.ln1_w; L.ln_b[0] = W.ln1_b; L.ln_w[1] = W.ln2_w; L.ln_b[1] = W.ln2_b;
+  L.qkv[0] = W.w_qkv1; L.qkv[1] = W.w_qkv2;
+  L.wo[0] = W.w_out1; L.wo[1] = W.w_out2; L.bo[0] = W.b_out1; L.bo[1] = W.b_out2;
+  L.w1 = W.ff_w1; L.b1 = W.ff_b1; L.w2 = W.ff_w2; L.b2 = W.ff_b2;
+  L.qkv_rs = D;
+  L.wo_hs = DH; L.wo_es = Dm.inner;      // w_out [D, inner]
+  L.w1_rs = D;
+  L.w2_ks = 1; L.w2_es = Dm.hidden;      // w2 [D, hidden]
+  return L;
+}
+
+// Copy rows x cols of src (row stride src_rs, element stride src_es)
+// into dst with row stride dst_rs.
+__device__ void stage(float* dst, int dst_rs, const float* src, int rows, int cols,
+                      int src_rs, int src_es) {
+  for (int it = threadIdx.x; it < rows * cols; it += blockDim.x) {
+    const int r = it / cols, c = it - r * cols;
+    dst[r * dst_rs + c] = src[(size_t)r * src_rs + (size_t)c * src_es];
+  }
+}
+
+// Stage every weight into smem (padded rows); returns their layout.
+template <int D, int DH>
+__device__ __forceinline__ Layout stage_weights(float* smem, const Dims& Dm, const Weights& W) {
+  constexpr int D4 = pad4(D), DH4 = pad4(DH);
+  const Layout G = global_layout<D, DH>(Dm, W);
+  Layout L = G;
+  float* p = smem;
+  for (int a = 0; a < 2; ++a) {
+    stage(p, D4, G.ln_w[a], 1, D, 0, 1); L.ln_w[a] = p; p += D4;
+    stage(p, D4, G.ln_b[a], 1, D, 0, 1); L.ln_b[a] = p; p += D4;
+    stage(p, D4, G.qkv[a], 3 * Dm.inner, D, D, 1); L.qkv[a] = p; p += 3 * Dm.inner * D4;
+    if (Dm.project_out) {
+      // head h, output e: w_out[e, h * DH + c] -> p[(h * D + e) * DH4 + c]
+      for (int h = 0; h < Dm.heads; ++h)
+        stage(p + h * D * DH4, DH4, G.wo[a] + h * DH, D, DH, Dm.inner, 1);
+      L.wo[a] = p; p += Dm.heads * D * DH4;
+      stage(p, D4, G.bo[a], 1, D, 0, 1); L.bo[a] = p; p += D4;
+    }
+  }
+  stage(p, D4, G.w1, Dm.hidden, D, D, 1); L.w1 = p; p += Dm.hidden * D4;
+  stage(p, pad4(Dm.hidden), G.b1, 1, Dm.hidden, 0, 1); L.b1 = p; p += pad4(Dm.hidden);
+  // w2 transposed: hidden unit k's D outputs contiguous
+  stage(p, D4, G.w2, Dm.hidden, D, 1, Dm.hidden); L.w2 = p; p += Dm.hidden * D4;
+  stage(p, D4, G.b2, 1, D, 0, 1); L.b2 = p;
+  L.qkv_rs = D4;
+  L.wo_hs = D * DH4; L.wo_es = DH4;
+  L.w1_rs = D4;
+  L.w2_ks = D4; L.w2_es = 1;
+  return L;
+}
+
+// N consecutive weights from p (element stride es when not V4).
+template <int N, bool V4>
+__device__ __forceinline__ void load_row(const float* p, int es, float (&r)[N]) {
+  if constexpr (V4) {
+#pragma unroll
+    for (int i = 0; i < N; i += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(p + i);
+      r[i] = v.x;
+      if (i + 1 < N) r[i + 1] = v.y;
+      if (i + 2 < N) r[i + 2] = v.z;
+      if (i + 3 < N) r[i + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) r[i] = __ldg(p + i * es);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ float dot(const float (&a)[N], const float (&b)[N]) {
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc = fmaf(a[i], b[i], acc);
+  return acc;
+}
+
+// Weight row r of a [rows, N] matrix dotted with a.
+template <int N, bool WS>
+__device__ __forceinline__ float dot_row(const float (&a)[N], const float* w, int r, int rs) {
+  float row[N];
+  load_row<N, WS>(w + r * rs, 1, row);
+  return dot(a, row);
+}
+
+// Attention sub-block (a = 0: over s, intra; a = 1: over t, cross) with
+// its residual, on the warp's sample: xs [n][DP], xns [n][DP], ks and
+// vs [n][DHP] in shared memory.
+template <int D, int DH, bool WS>
+__device__ __forceinline__ void attention(float* xs, float* xns, float* ks, float* vs,
+                                          const Dims& Dm, const Layout& L, int a,
+                                          int lane) {
+  constexpr int DP = D | 1, DHP = DH | 1;
+  // rows of weights in flight per loop: all at d=10, a few at d=40,
+  // where a row alone is 40 registers
+  constexpr int kRowUnroll = D > 16 ? 2 : DH;
+  const int n = Dm.n, len = a ? Dm.t : Dm.s;
+  const float* ln_w = L.ln_w[a];
+  const float* ln_b = L.ln_b[a];
+  const float* qkv = L.qkv[a];
+  for (int tok = lane; tok < n; tok += 32) {
+    float x[D];
+#pragma unroll
+    for (int e = 0; e < D; ++e) x[e] = xs[tok * DP + e];
     float mu = 0.f;
-    for (int e = 0; e < d; ++e) mu += x[e];
-    mu /= d;
+#pragma unroll
+    for (int e = 0; e < D; ++e) mu += x[e];
+    mu /= D;
     float var = 0.f;
-    for (int e = 0; e < d; ++e) { const float c = x[e] - mu; var += c * c; }
-    var /= d;
+#pragma unroll
+    for (int e = 0; e < D; ++e) { const float c = x[e] - mu; var += c * c; }
+    var /= D;
     const float r = 1.0f / sqrtf(var + 1e-5f);
-    for (int e = 0; e < d; ++e) xn[e] = (x[e] - mu) * r * ln_w[e] + ln_b[e];
+#pragma unroll
+    for (int e = 0; e < D; ++e) xns[tok * DP + e] = (x[e] - mu) * r * ln_w[e] + ln_b[e];
   }
-  for (int it = threadIdx.x; it < nsamp * n * d; it += blockDim.x) {
-    const int j = it / (n * d);
-    smem[j * ps + n * d + (it - j * n * d)] = 0.f;
-  }
-  __syncthreads();
-
-  for (int h = 0; h < D.heads; ++h) {
-    // q, k, v of head h: rows part * inner + h * dh + c of to_qkv
-    for (int it = threadIdx.x; it < nsamp * n * qkv_w; it += blockDim.x) {
-      const int j = it / (n * qkv_w), rem = it - j * n * qkv_w;
-      const int tok = rem / qkv_w, c = rem - tok * qkv_w;
-      const int part = c / dh;
-      const float* w = w_qkv + (size_t)(part * D.inner + h * dh + (c - part * dh)) * d;
-      const float* xn = smem + j * ps + off_xn + tok * d;
-      float acc = 0.f;
-      for (int e = 0; e < d; ++e) acc += xn[e] * w[e];
-      smem[j * ps + off_qkv + rem] = acc;
+  for (int h = 0; h < Dm.heads; ++h) {
+    // k and v of head h for the lane's tokens: rows part * inner + h * DH + c
+    for (int tok = lane; tok < n; tok += 32) {
+      float xn[D];
+#pragma unroll
+      for (int e = 0; e < D; ++e) xn[e] = xns[tok * DP + e];
+#pragma unroll (kRowUnroll)
+      for (int c = 0; c < DH; ++c) {
+        ks[tok * DHP + c] = dot_row<D, WS>(xn, qkv, Dm.inner + h * DH + c, L.qkv_rs);
+        vs[tok * DHP + c] = dot_row<D, WS>(xn, qkv, 2 * Dm.inner + h * DH + c, L.qkv_rs);
+      }
     }
-    __syncthreads();
-    // one thread per query token: scores, softmax, weighted sum of v
-    for (int it = threadIdx.x; it < nsamp * n; it += blockDim.x) {
-      const int j = it / n, tok = it - j * n;
-      const int ti = tok / D.s, si = tok - ti * D.s;
-      const float* base = smem + j * ps + off_qkv;
-      const float* q = base + tok * qkv_w;
-      float* p = smem + j * ps + off_p + tok * L;
+    __syncwarp();
+    for (int tok = lane; tok < n; tok += 32) {
+      float xn[D], q[DH], o[DH];
+#pragma unroll
+      for (int e = 0; e < D; ++e) xn[e] = xns[tok * DP + e];
+#pragma unroll (kRowUnroll)
+      for (int c = 0; c < DH; ++c) q[c] = dot_row<D, WS>(xn, qkv, h * DH + c, L.qkv_rs);
+      const int ti = tok / Dm.s, si = tok - ti * Dm.s;
+      const int k0 = a ? si : ti * Dm.s, kstep = a ? Dm.s : 1;
       float m = -CUDART_INF_F;
-      for (int l = 0; l < L; ++l) {
-        const int kt = over_t ? l * D.s + si : ti * D.s + l;
-        const float* k = base + kt * qkv_w + dh;
-        float dot = 0.f;
-        for (int c = 0; c < dh; ++c) dot += q[c] * k[c];
-        dot *= D.scale;
-        p[l] = dot;
-        m = fmaxf(m, dot);
+      for (int l = 0; l < len; ++l) {
+        const float* k = ks + (k0 + l * kstep) * DHP;
+        float d = 0.f;
+#pragma unroll
+        for (int c = 0; c < DH; ++c) d = fmaf(q[c], k[c], d);
+        m = fmaxf(m, d * Dm.scale);
       }
+#pragma unroll
+      for (int c = 0; c < DH; ++c) o[c] = 0.f;
       float den = 0.f;
-      for (int l = 0; l < L; ++l) { p[l] = expf(p[l] - m); den += p[l]; }
-      for (int l = 0; l < L; ++l) p[l] = p[l] / den;
-      float* o = smem + j * ps + off_o + tok * dh;
-      for (int c = 0; c < dh; ++c) {
-        float acc = 0.f;
-        for (int l = 0; l < L; ++l) {
-          const int kt = over_t ? l * D.s + si : ti * D.s + l;
-          acc += p[l] * base[kt * qkv_w + 2 * dh + c];
-        }
-        o[c] = acc;
+      for (int l = 0; l < len; ++l) {
+        const int kt = k0 + l * kstep;
+        const float* k = ks + kt * DHP;
+        const float* v = vs + kt * DHP;
+        float d = 0.f;
+#pragma unroll
+        for (int c = 0; c < DH; ++c) d = fmaf(q[c], k[c], d);
+        const float p = expf(d * Dm.scale - m);
+        den += p;
+#pragma unroll
+        for (int c = 0; c < DH; ++c) o[c] = fmaf(p, v[c], o[c]);
+      }
+#pragma unroll
+      for (int c = 0; c < DH; ++c) o[c] /= den;
+      float* xr = xs + tok * DP;
+      if (Dm.project_out) {
+        const float* wo = L.wo[a] + h * L.wo_hs;
+#pragma unroll (kRowUnroll)
+        for (int e = 0; e < D; ++e) xr[e] += dot_row<DH, WS>(o, wo, e, L.wo_es);
+      } else if constexpr (D == DH) {   // heads == 1 and dim_head == d
+#pragma unroll
+        for (int e = 0; e < D; ++e) xr[e] += o[e];
       }
     }
-    __syncthreads();
-    // out-projection of head h, accumulated over heads
-    for (int it = threadIdx.x; it < nsamp * n * d; it += blockDim.x) {
-      const int j = it / (n * d), rem = it - j * n * d;
-      const int tok = rem / d, e = rem - tok * d;
-      const float* o = smem + j * ps + off_o + tok * dh;
-      float* acc = smem + j * ps + n * d + rem;
-      if (D.project_out) {
-        const float* w = w_out + (size_t)e * D.inner + h * dh;
-        float sum = 0.f;
-        for (int c = 0; c < dh; ++c) sum += o[c] * w[c];
-        *acc += sum;
-      } else {
-        *acc = o[e];   // heads == 1 and dh == d
-      }
+    __syncwarp();   // the next head overwrites ks, vs
+  }
+  if (Dm.project_out) {
+    for (int tok = lane; tok < n; tok += 32) {
+#pragma unroll
+      for (int e = 0; e < D; ++e) xs[tok * DP + e] += L.bo[a][e];
     }
-    __syncthreads();
   }
-  for (int it = threadIdx.x; it < nsamp * n * d; it += blockDim.x) {
-    const int j = it / (n * d), rem = it - j * n * d;
-    const int e = rem % d;
-    float* x = smem + j * ps + rem;
-    const float a = smem[j * ps + n * d + rem];
-    *x = (D.project_out ? a + b_out[e] : a) + *x;
-  }
-  __syncthreads();
 }
 
-__device__ void feed_forward(float* smem, int nsamp, const Dims& D, const Weights& W) {
-  const int n = D.n, d = D.d, hid = D.hidden, ps = D.per_sample;
-  const int off_h = 2 * n * d;
-  for (int it = threadIdx.x; it < nsamp * n * hid; it += blockDim.x) {
-    const int j = it / (n * hid), rem = it - j * n * hid;
-    const int tok = rem / hid, k = rem - tok * hid;
-    const float* x = smem + j * ps + tok * d;
-    const float* w = W.ff_w1 + (size_t)k * d;
-    float acc = 0.f;
-    for (int e = 0; e < d; ++e) acc += x[e] * w[e];
-    acc += W.ff_b1[k];
-    smem[j * ps + off_h + rem] = 0.5f * acc * (1.0f + erff(acc / 1.41421356237309515f));
+// x += W2 gelu(W1 x + b1) + b2 on the lane's tokens.
+template <int D, bool WS>
+__device__ __forceinline__ void feed_forward(float* xs, const Dims& Dm, const Layout& L,
+                                             int lane) {
+  constexpr int DP = D | 1;
+  for (int tok = lane; tok < Dm.n; tok += 32) {
+    float x[D], acc[D];
+#pragma unroll
+    for (int e = 0; e < D; ++e) { x[e] = xs[tok * DP + e]; acc[e] = 0.f; }
+#pragma unroll (D > 16 ? 1 : 2)
+    for (int k = 0; k < Dm.hidden; ++k) {
+      const float u = dot_row<D, WS>(x, L.w1, k, L.w1_rs) + L.b1[k];
+      const float g = 0.5f * u * (1.0f + erff(u / 1.41421356237309515f));
+      float w[D];
+      load_row<D, WS>(L.w2 + k * L.w2_ks, L.w2_es, w);
+#pragma unroll
+      for (int e = 0; e < D; ++e) acc[e] = fmaf(g, w[e], acc[e]);
+    }
+#pragma unroll
+    for (int e = 0; e < D; ++e) xs[tok * DP + e] = (acc[e] + L.b2[e]) + x[e];
   }
-  __syncthreads();
-  for (int it = threadIdx.x; it < nsamp * n * d; it += blockDim.x) {
-    const int j = it / (n * d), rem = it - j * n * d;
-    const int tok = rem / d, e = rem - tok * d;
-    const float* hrow = smem + j * ps + off_h + tok * hid;
-    const float* w = W.ff_w2 + (size_t)e * hid;
-    float acc = 0.f;
-    for (int k = 0; k < hid; ++k) acc += hrow[k] * w[k];
-    float* x = smem + j * ps + rem;
-    *x = (acc + W.ff_b2[e]) + *x;
-  }
-  __syncthreads();
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <int D, int DH, bool WS>
+__global__ void __launch_bounds__(kWarps * 32)
 cross_intra_block_kernel(const float* __restrict__ x_in, float* __restrict__ x_out,
-                         int B, int spb, Dims D, Weights W) {
-  extern __shared__ float smem[];
-  const int b0 = blockIdx.x * spb;
-  const int nsamp = min(spb, B - b0);
-  const int nd = D.n * D.d;
-  const float* src = x_in + (size_t)b0 * nd;
-  for (int it = threadIdx.x; it < nsamp * nd; it += blockDim.x) {
-    const int j = it / nd;
-    smem[j * D.per_sample + (it - j * nd)] = src[it];
+                         int B, Dims Dm, Weights W) {
+  constexpr int DP = D | 1, DHP = DH | 1;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  Layout L;
+  float* area = smem;
+  if constexpr (WS) {
+    L = stage_weights<D, DH>(smem, Dm, W);
+    area += staged_floats<D, DH>(Dm.heads, Dm.hidden, Dm.project_out);
+    __syncthreads();
+  } else {
+    L = global_layout<D, DH>(Dm, W);
   }
-  __syncthreads();
-  attention(smem, nsamp, D, W.ln1_w, W.ln1_b, W.w_qkv1, W.w_out1, W.b_out1, false);
-  attention(smem, nsamp, D, W.ln2_w, W.ln2_b, W.w_qkv2, W.w_out2, W.b_out2, true);
-  feed_forward(smem, nsamp, D, W);
-  float* dst = x_out + (size_t)b0 * nd;
-  for (int it = threadIdx.x; it < nsamp * nd; it += blockDim.x) {
-    const int j = it / nd;
-    dst[it] = smem[j * D.per_sample + (it - j * nd)];
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n = Dm.n, nd = n * D;
+  float* xs = area + warp * warp_floats<D, DH>(n);
+  float* xns = xs + n * DP;
+  float* ks = xns + n * DP;
+  float* vs = ks + n * DHP;
+  for (int b = blockIdx.x * warps + warp; b < B; b += gridDim.x * warps) {
+    const float* src = x_in + (size_t)b * nd;
+    for (int it = lane; it < nd; it += 32) {
+      const int tok = it / D;
+      xs[tok * DP + it - tok * D] = __ldg(src + it);
+    }
+    __syncwarp();
+    attention<D, DH, WS>(xs, xns, ks, vs, Dm, L, 0, lane);
+    attention<D, DH, WS>(xs, xns, ks, vs, Dm, L, 1, lane);
+    feed_forward<D, WS>(xs, Dm, L, lane);
+    __syncwarp();
+    float* dst = x_out + (size_t)b * nd;
+    for (int it = lane; it < nd; it += 32) {
+      const int tok = it / D;
+      dst[it] = xs[tok * DP + it - tok * D];
+    }
+    __syncwarp();   // the next sample overwrites xs
   }
+}
+
+// The launch plan of one shape: weights staged or not, warps per CTA,
+// shared memory per CTA.
+struct Plan {
+  bool staged;
+  int warps, smem;
+};
+
+template <int D, int DH>
+bool plan(const Dims& Dm, Plan* p) {
+  const long long warp_bytes = 4LL * warp_floats<D, DH>(Dm.n);
+  const long long wbytes = 4LL * staged_floats<D, DH>(Dm.heads, Dm.hidden, Dm.project_out);
+  p->staged = wbytes <= kWeightSmemBytes && wbytes + warp_bytes <= kMaxSmemBytes;
+  const long long room = kMaxSmemBytes - (p->staged ? wbytes : 0);
+  const long long warps = room / warp_bytes;
+  if (warps < 1) return false;
+  p->warps = warps < kWarps ? (int)warps : kWarps;
+  p->smem = (int)((p->staged ? wbytes : 0) + p->warps * warp_bytes);
+  return true;
+}
+
+template <int D, int DH, bool WS>
+cudaError_t ctas_per_sm(const Plan& p, int* per_sm) {
+  auto kernel = cross_intra_block_kernel<D, DH, WS>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         p.smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, 32 * p.warps, p.smem);
+}
+
+template <int D, int DH, bool WS>
+cudaError_t run(const float* x_in, float* x_out, int B, const Dims& Dm, const Weights& W,
+                const Plan& p, cudaStream_t stream) {
+  int per_sm = 0, dev = 0, sms = 0;
+  cudaError_t err = ctas_per_sm<D, DH, WS>(p, &per_sm);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int need = (B + p.warps - 1) / p.warps;
+  const int grid = need < per_sm * sms ? need : per_sm * sms;
+  cross_intra_block_kernel<D, DH, WS><<<grid, 32 * p.warps, p.smem, stream>>>(
+      x_in, x_out, B, Dm, W);
+  return cudaGetLastError();
+}
+
+template <int D, int DH>
+cudaError_t launch(const float* x_in, float* x_out, int B, const Dims& Dm, const Weights& W,
+                   cudaStream_t stream) {
+  Plan p;
+  if (!plan<D, DH>(Dm, &p)) return cudaErrorInvalidValue;
+  return p.staged ? run<D, DH, true>(x_in, x_out, B, Dm, W, p, stream)
+                  : run<D, DH, false>(x_in, x_out, B, Dm, W, p, stream);
+}
+
+template <int D_, int DH_>
+struct Width {
+  static constexpr int D = D_, DH = DH_;
+};
+
+// fn(Width<d, dh>{}) for the compiled widths (d, dim_head), those of the
+// repository's configs; otherwise for any other.
+template <typename R, typename Fn>
+R with_width(int d, int dh, R otherwise, Fn&& fn) {
+  if (d == 10 && dh == 10) return fn(Width<10, 10>{});
+  if (d == 40 && dh == 10) return fn(Width<40, 10>{});
+  return otherwise;
 }
 
 }  // namespace
@@ -231,10 +423,29 @@ extern "C" {
 
 int cross_intra_block_max_smem_bytes() { return kMaxSmemBytes; }
 
-// Shared memory one sample needs, in bytes.
-long long cross_intra_block_smem_per_sample(int t, int s, int d, int heads,
-                                            int dh, int hidden) {
-  return 4LL * make_dims(t, s, d, heads, dh, hidden, 1).per_sample;
+// Shared memory one sample (one warp's area) needs, in bytes, or -1 for
+// (d, dh) that are not compiled widths.
+long long cross_intra_block_smem_per_sample(int t, int s, int d, int dh) {
+  return with_width(d, dh, -1LL, [&](auto w) {
+    using Wd = decltype(w);
+    return 4LL * warp_floats<Wd::D, Wd::DH>(t * s);
+  });
+}
+
+// The launch plan of a block shape: warps per CTA, whether the weights
+// are staged in shared memory, and the CTAs that fit on one SM.
+int cross_intra_block_occupancy(int t, int s, int d, int heads, int dh, int hidden,
+                                int project_out, int* warps, int* staged, int* per_sm) {
+  const Dims Dm = make_dims(t, s, heads, dh, hidden, project_out);
+  return (int)with_width(d, dh, cudaErrorInvalidValue, [&](auto w) {
+    using Wd = decltype(w);
+    Plan p;
+    if (!plan<Wd::D, Wd::DH>(Dm, &p)) return cudaErrorInvalidValue;
+    *warps = p.warps;
+    *staged = p.staged;
+    return p.staged ? ctas_per_sm<Wd::D, Wd::DH, true>(p, per_sm)
+                    : ctas_per_sm<Wd::D, Wd::DH, false>(p, per_sm);
+  });
 }
 
 // x_in, x_out [B, t, s, d] f32 contiguous on the device (distinct
@@ -246,22 +457,18 @@ int cross_intra_block_launch(const void* x_in, void* x_out, int B, int t, int s,
                              int project_out, const void* const* weights,
                              void* stream) {
   if (B == 0) return 0;
-  const Dims D = make_dims(t, s, d, heads, dh, hidden, project_out);
-  const long long per_sample_bytes = 4LL * D.per_sample;
-  if (per_sample_bytes > kMaxSmemBytes) return (int)cudaErrorInvalidValue;
-  int spb = (int)(kTargetSmemBytes / per_sample_bytes);
-  spb = spb < 1 ? 1 : (spb > kMaxSamplesPerBlock ? kMaxSamplesPerBlock : spb);
-  const int smem = (int)(spb * per_sample_bytes);
-  cudaError_t err = cudaFuncSetAttribute(
-      cross_intra_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
+  if (!project_out && (heads != 1 || dh != d)) return (int)cudaErrorInvalidValue;
+  const Dims Dm = make_dims(t, s, heads, dh, hidden, project_out);
   const float* const* w = reinterpret_cast<const float* const*>(weights);
   const Weights W{w[0], w[1], w[2], w[3], w[4], w[5], w[6],
                   w[7], w[8], w[9], w[10], w[11], w[12], w[13]};
-  const int grid = (B + spb - 1) / spb;
-  cross_intra_block_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x_in), static_cast<float*>(x_out), B, spb, D, W);
-  return (int)cudaGetLastError();
+  const auto in = static_cast<const float*>(x_in);
+  const auto out = static_cast<float*>(x_out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  return (int)with_width(d, dh, cudaErrorInvalidValue, [&](auto w) {
+    using Wd = decltype(w);
+    return launch<Wd::D, Wd::DH>(in, out, B, Dm, W, st);
+  });
 }
 
 }  // extern "C"

@@ -14,6 +14,7 @@ index -1 is the caller's (retrieval/bm25.py::_finalize).
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -63,16 +64,41 @@ def bm25_topk_reference(qry, qry_idf, db_T, db_valid_len, topk,
     return best_v.contiguous(), best_i.to(torch.int32).contiguous()
 
 
-def _num_parts(B, C, device):
-    """Pool parts (blockIdx.y) so that about eight 128-query CTAs per SM
-    are in flight, each part at least one shared-memory tile."""
+@functools.lru_cache(maxsize=None)
+def _geometry(B, C, slots, queries_per_cta, tile):
+    """(parts, rows_per_part) for B queries against C pool rows: the
+    pool is cut into parts of whole tiles (blockIdx.y), and the count is
+    the one whose waves of ``slots`` resident CTAs (SMs x CTAs that fit
+    on one) finish first, each CTA costing its rows plus about a tile of
+    set-up. A pure function of its arguments; parts <= 65,535 (the
+    grid's y limit), and the parts cover rows 0..C-1 exactly once."""
+    q_tiles = -(-B // queries_per_cta)
+    tiles = -(-C // tile)
+    best = None
+    for parts in range(1, min(tiles, 65535) + 1):
+        rows = -(-tiles // parts) * tile
+        if -(-C // rows) != parts:   # the same cut as a smaller count
+            continue
+        cost = -(-q_tiles * parts // slots) * (rows + tile)
+        if best is None or cost < best[0]:
+            best = (cost, parts, rows)
+    return best[1], best[2]
+
+
+@functools.lru_cache(maxsize=None)
+def _occupancy(F, K, device_index):
+    """(queries per CTA, resident CTA slots on the card) of the scan
+    kernel that serves (F, K)."""
     lib = _build.load("bm25_topk")
-    tile = lib.bm25_topk_tile_rows()
-    q_tiles = -(-B // lib.bm25_topk_threads())
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    parts = max(1, min(-(-8 * sms // q_tiles), -(-C // tile), 65535))
-    rows = -(-C // parts)
-    return -(-C // rows), rows
+    qpc, per_sm = _C(), _C()
+    fn = lib.bm25_topk_occupancy
+    fn.argtypes = [_C, _C, ctypes.POINTER(_C), ctypes.POINTER(_C)]
+    fn.restype = _C
+    with torch.cuda.device(device_index):
+        _build.check(fn(F, K, ctypes.byref(qpc), ctypes.byref(per_sm)),
+                     "bm25_topk occupancy")
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return qpc.value, sms * per_sm.value
 
 
 def bm25_topk(qry, qry_idf, db_T, db_valid_len, topk):
@@ -104,15 +130,18 @@ def bm25_topk(qry, qry_idf, db_T, db_valid_len, topk):
         raise ValueError("pool has {} rows < topk={}; pad it".format(C, topk))
     out_v = torch.empty((B, topk), dtype=torch.float32, device=qry.device)
     out_i = torch.empty((B, topk), dtype=torch.int32, device=qry.device)
-    parts, rows = _num_parts(B, C, qry.device)
-    part_v = torch.empty((parts if parts > 1 else 0, B, topk),
+    dev = qry.device.index
+    qpc, slots = _occupancy(F, topk, torch.cuda.current_device() if dev is None else dev)
+    parts, rows = _geometry(B, C, slots, qpc, lib.bm25_topk_tile_rows())
+    part_v = torch.empty((parts if parts > 1 else 0, topk, B),
                          dtype=torch.float32, device=qry.device)
     part_i = torch.empty_like(part_v, dtype=torch.int32)
+    vec = C % 4 == 0 and db_T.data_ptr() % 16 == 0
     fn = lib.bm25_topk_launch
-    fn.argtypes = [_P, _P, _P, _C, _C, _C, _C, _C, _C, _C, _P, _P, _P, _P, _P]
+    fn.argtypes = [_P, _P, _P] + [_C] * 8 + [_P] * 5
     fn.restype = _C
     err = fn(qry.data_ptr(), qry_idf.data_ptr(), db_T.data_ptr(), B, F, C,
-             int(db_valid_len), topk, parts, rows, part_v.data_ptr(),
+             int(db_valid_len), topk, parts, rows, int(vec), part_v.data_ptr(),
              part_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
              torch.cuda.current_stream(qry.device).cuda_stream)
     _build.check(err, "bm25_topk kernel")

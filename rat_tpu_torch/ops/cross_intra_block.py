@@ -71,12 +71,13 @@ def cross_intra_block_reference(x, params, heads, dim_head, project_out=True):
     return h.reshape(b, s, t, d).transpose(1, 2).contiguous()
 
 
-def smem_bytes_per_sample(t, s, d, heads, dim_head, hidden):
-    """Shared memory the kernel needs for one sample."""
+def smem_bytes_per_sample(t, s, d, dim_head):
+    """Shared memory the kernel needs for one sample (one warp's area),
+    or -1 if (d, dim_head) is not a compiled width."""
     fn = _build.load("cross_intra_block").cross_intra_block_smem_per_sample
-    fn.argtypes = [ctypes.c_int] * 6
+    fn.argtypes = [ctypes.c_int] * 4
     fn.restype = ctypes.c_longlong
-    return fn(t, s, d, heads, dim_head, hidden)
+    return fn(t, s, d, dim_head)
 
 
 def _forward(x, params, heads, dim_head, project_out):
@@ -115,8 +116,13 @@ def _forward(x, params, heads, dim_head, project_out):
                                  name, shapes[name], x.device))
         ptrs.append(w.data_ptr())
     lib = _build.load("cross_intra_block")
-    need = smem_bytes_per_sample(t, s, d, heads, dim_head, hidden)
+    need = smem_bytes_per_sample(t, s, d, dim_head)
     limit = lib.cross_intra_block_max_smem_bytes()
+    if need < 0:
+        raise ValueError("cross_intra_block: d={} dim_head={} is not a width the "
+                         "kernel is compiled for (csrc/cross_intra_block.cu::"
+                         "with_width: the configs' (10, 10) and (40, 10))".format(
+                             d, dim_head))
     if need > limit:
         raise ValueError("cross_intra_block: one sample of shape t={} s={} d={} "
                          "heads={} dim_head={} needs {} bytes of shared memory, "

@@ -201,8 +201,11 @@ def bm25_topk_retrieval(db_np_data, qry_np_data,
 
     # field-major pool with at least topK rows: when K exceeds the pool,
     # the padding rows (score 0, or -inf under neg_pad) take the surplus
-    # slots and are dropped to -1, like the JAX scan's padded chunks
-    db_T = torch.zeros((F, max(N, topK)), dtype=torch.int32, device=device)
+    # slots and are dropped to -1, like the JAX scan's padded chunks.
+    # Columns are padded to a multiple of 4, so that K2 copies its pool
+    # tiles 16 bytes at a time; padding rows rank after every real row.
+    cols = max(N, topK)
+    db_T = torch.zeros((F, cols + (-cols) % 4), dtype=torch.int32, device=device)
     db_T[:, :N] = torch.from_numpy(db_np_data.T.astype(np.int32)).to(device)
     qry_dev = torch.from_numpy(qry_np_data.astype(np.int32)).to(device)
     qry_batch_size = Q if qry_batch_size is None else qry_batch_size
