@@ -1,12 +1,6 @@
 """Smoke run of rat_tpu_torch on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
-    python3 chip_smoke.py --parent DIR   # K2 and K1 against earlier sources
-
-With --parent, only the build and one comparison run: the K2 and K1
-sources in DIR (for example those of commit 69cda9a, unpacked with
-``git archive 69cda9a rat_tpu_torch/csrc | tar -x -C build/old``) are
-built beside the current ones and timed in turns on the same card.
 
 Phases, any failure exits non-zero:
 
@@ -16,19 +10,24 @@ Phases, any failure exits non-zero:
              the registers and CTAs per SM of the main path's K1 and K2.
 2. kernels — hold each kernel against its plain PyTorch version on the
              card: K1 (fused cross/intra block) at the ML-Tag, KKBox and
-             Tmall block shapes and heads=1/dim_head=d, rtol 1e-4 /
-             atol 1e-5; K2 (BM25 score + top-K) exactly, after the
-             zero-score drop, on tie-heavy pools, K above the pool size
-             and 4096 and 5000 queries against the serving pool; K3 (dense BM25
-             chunk scores) exactly (torch.equal) at 4096 requests x
+             Tmall block shapes, heads=1/dim_head=d at d=10 and d=40 and
+             d=16/dim_head=8 (the last two run its kernel for widths
+             other than the configs'), rtol 1e-4 / atol 1e-5; K2 (BM25
+             score + top-K) exactly, after the zero-score drop, on
+             tie-heavy pools, K above the pool size and 4096 and 5000
+             queries against the serving pool; K3 (dense BM25 chunk
+             scores) exactly (torch.equal) at 4096 requests x
              50,000 pool rows, F=11 with ragged B and C, heavy ties and
              F=16. Each kernel is timed on the device (torch.profiler's
-             kernel time; K2 at 4096 queries and at the main path's
-             5000), its plain version with CUDA events.
+             kernel time, ``ms``; K1 at every shape, K2 at 4096 queries
+             and at the main path's 5000) and with CUDA events around
+             back-to-back calls of its wrapper (``call_ms``), its plain
+             version with CUDA events.
 3. K1 grad — K1 under autograd (ops.cross_intra_block.CrossIntraBlock):
              dx and the 14 weight gradients against autograd of the
              plain version at the ML-Tag (B=4096 and 4093), KKBox and
-             heads=1/dim_head=d shapes, rtol 2e-3 / atol 1e-4;
+             heads=1/dim_head=d (d=10 and d=40) shapes, rtol 2e-3 /
+             atol 1e-4;
              forward+backward timed for both.
 4. serve   — RAT_m2 at the full width of the ML-Tag config
              (configs/RAT_m2/movielenslatest_x1, plus use_pallas) on
@@ -315,9 +314,12 @@ def check_k1(rng, device):
     """K1 against its plain version; returns the table entry."""
     shapes = [("mltag", 4096, 6, 4, 10, 2, 10), ("mltag_b4093", 4093, 6, 4, 10, 2, 10),
               ("kkbox", 4096, 6, 14, 40, 8, 10), ("tmall", 4096, 6, 9, 10, 32, 10),
-              ("heads1_dh_eq_d", 4096, 6, 4, 10, 1, 10)]
+              ("heads1_dh_eq_d", 4096, 6, 4, 10, 1, 10),
+              ("heads1_dh_eq_d40", 4096, 6, 14, 40, 1, 40),
+              ("d16_dh8", 4093, 6, 4, 16, 2, 8)]
     worst = 0.0
     timed = None
+    ms_by_shape, bounds = {}, {}
     for name, B, t, s, d, heads, dim_head in shapes:
         project_out = not (heads == 1 and dim_head == d)
         hidden = 4 * d
@@ -328,15 +330,26 @@ def check_k1(rng, device):
         torch.cuda.synchronize()
         err = (got - want).abs()
         ok = bool((err <= 1e-5 + 1e-4 * want.abs()).all())
+        if ok:
+            ms_by_shape[name] = _kernel_ms(
+                lambda: k1.cross_intra_block(x, p, heads, dim_head, project_out), 20,
+                "cross_intra_block")
+            bounds[name] = _bound(
+                B * k1_flops(t, s, d, heads, dim_head, hidden, project_out),
+                2 * B * t * s * d * 4 + sum(w.numel() * 4 for w in p.values()
+                                            if w is not None))
         print("K1 {:16s} B={:5d} t={} s={:2d} d={:2d} h={:2d} dh={:2d}: max_abs_err "
-              "{:.3e} (rtol 1e-4, atol 1e-5) {}".format(name, B, t, s, d, heads, dim_head,
-                                 err.max().item(), "ok" if ok else "FAIL"))
+              "{:.3e} (rtol 1e-4, atol 1e-5) {}, {:.4f} ms (bound {:.4f} ms)".format(
+                  name, B, t, s, d, heads, dim_head, err.max().item(),
+                  "ok" if ok else "FAIL", ms_by_shape.get(name, float("nan")),
+                  bounds.get(name, (float("nan"),))[0]))
         if not ok:
             raise AssertionError("K1 disagrees with its plain version at " + name)
         worst = max(worst, err.max().item())
         if name == "mltag":
-            timed = (x, p, heads, dim_head, project_out, (B, t, s, d, hidden))
-    x, p, heads, dim_head, project_out, (B, t, s, d, hidden) = timed
+            timed = (x, p, heads, dim_head, project_out)
+    x, p, heads, dim_head, project_out = timed
+
     def call():
         return k1.cross_intra_block(x, p, heads, dim_head, project_out)
 
@@ -344,17 +357,15 @@ def check_k1(rng, device):
     call_ms = _cuda_ms(call, 50)
     plain_ms = _cuda_ms(lambda: k1.cross_intra_block_reference(
         x, p, heads, dim_head, project_out), 20)
-    wbytes = sum(w.numel() * 4 for w in p.values() if w is not None)
-    bound_ms, bound_by = _bound(
-        B * k1_flops(t, s, d, heads, dim_head, hidden, project_out),
-        2 * B * t * s * d * 4 + wbytes)
+    bound_ms, bound_by = bounds["mltag"]
     return {"name": "cross_intra_block", "route": "cuda",
             "source": "rat_tpu_torch/csrc/cross_intra_block.cu",
             "replaces": "rat_tpu/ops/pallas/cross_intra_block.py:206",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "shape": "B=4096 t=6 s=4 d=10 h=2 dh=10 (ML-Tag block)",
-            "call_ms": call_ms}
+            "call_ms": call_ms, "ms_by_shape": ms_by_shape,
+            "bound_ms_by_shape": {name: b[0] for name, b in bounds.items()}}
 
 
 def _query_idf(db, qry, device):
@@ -384,14 +395,17 @@ def _k2_case(db, qry, K, device, pad4=False):
 
 
 def _k2_times(q, idf, db_T, N, K):
-    """(kernel ms, plain ms, bound ms, bound by) of K2 on these inputs;
-    the kernel's time is that of its scan and merge on the device. The
-    bound counts one compare and one add per (query, row, field) as
+    """(kernel ms, call ms, plain ms, bound ms, bound by) of K2 on these
+    inputs; the kernel's time is that of its scan and merge on the
+    device, the call's that of back-to-back wrapper calls (CUDA events).
+    The bound counts one compare and one add per (query, row, field) as
     two operations against the float32 peak, as PERF.md explains."""
     B, F = q.shape
     ms = _kernel_ms(lambda: k2.bm25_topk(q, idf, db_T, N, K), 20, "bm25_")
+    call_ms = _cuda_ms(lambda: k2.bm25_topk(q, idf, db_T, N, K), 20)
     plain_ms = _cuda_ms(lambda: k2.bm25_topk_reference(q, idf, db_T, N, K), 2)
-    return (ms, plain_ms) + _bound(B * N * 2 * F, F * N * 4 + B * F * 8 + B * K * 8)
+    return (ms, call_ms, plain_ms) + _bound(B * N * 2 * F,
+                                            F * N * 4 + B * F * 8 + B * K * 8)
 
 
 def check_k2(rng, device, pool, test):
@@ -421,8 +435,8 @@ def check_k2(rng, device, pool, test):
         if pad4:
             timed[len(qry)] = args
     N = len(pool)
-    ms, plain_ms, bound_ms, bound_by = _k2_times(*timed[4096])
-    ms_b, plain_ms_b, bound_ms_b, _ = _k2_times(*timed[batch])
+    ms, call_ms, plain_ms, bound_ms, bound_by = _k2_times(*timed[4096])
+    ms_b, call_ms_b, plain_ms_b, bound_ms_b, _ = _k2_times(*timed[batch])
     print("K2 at {} queries: {:.4f} ms (bound {:.4f} ms); at {}: {:.4f} ms (bound "
           "{:.4f} ms)".format(4096, ms, bound_ms, batch, ms_b, bound_ms_b))
     return {"name": "bm25_topk", "route": "cuda",
@@ -431,7 +445,9 @@ def check_k2(rng, device, pool, test):
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "shape": "B=4096 F=3 K=5 against the {}-row pool".format(N),
-            "ms_b{}".format(batch): ms_b, "plain_ms_b{}".format(batch): plain_ms_b,
+            "call_ms": call_ms, "ms_b{}".format(batch): ms_b,
+            "call_ms_b{}".format(batch): call_ms_b,
+            "plain_ms_b{}".format(batch): plain_ms_b,
             "bound_ms_b{}".format(batch): bound_ms_b}
 
 
@@ -471,6 +487,7 @@ def check_k3(rng, device, pool, test):
     launches = k3.launches
     q, idf, dbc = timed
     ms = _kernel_ms(lambda: k3.bm25_score_chunk(q, idf, dbc), 20, "bm25_score_chunk")
+    call_ms = _cuda_ms(lambda: k3.bm25_score_chunk(q, idf, dbc), 20)
     plain_ms = _cuda_ms(lambda: k3.bm25_score_chunk_reference(q, idf, dbc), 3)
     B, F = q.shape
     C = dbc.shape[0]
@@ -481,7 +498,8 @@ def check_k3(rng, device, pool, test):
             "launches": launches, "max_abs_err": 0.0, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None,
-            "shape": "B=4096 F=3 against the first {} pool rows".format(C)}
+            "shape": "B=4096 F=3 against the first {} pool rows".format(C),
+            "call_ms": call_ms}
 
 
 def check_k1_grad(rng, device):
@@ -489,7 +507,8 @@ def check_k1_grad(rng, device):
     autograd of the plain version, for one random cotangent. Returns the
     forward+backward times (ms) of both at the ML-Tag shape."""
     shapes = [("mltag", 4096, 6, 4, 10, 2, 10), ("mltag_b4093", 4093, 6, 4, 10, 2, 10),
-              ("kkbox", 4096, 6, 14, 40, 8, 10), ("heads1_dh_eq_d", 4096, 6, 4, 10, 1, 10)]
+              ("kkbox", 4096, 6, 14, 40, 8, 10), ("heads1_dh_eq_d", 4096, 6, 4, 10, 1, 10),
+              ("heads1_dh_eq_d40", 1024, 6, 14, 40, 1, 40)]
     timed = None
     for name, B, t, s, d, heads, dim_head in shapes:
         project_out = not (heads == 1 and dim_head == d)
@@ -762,111 +781,9 @@ def _print_build_report(device):
         raise AssertionError("ptxas: K1/K2 kernels spill registers: {}".format(spilled))
 
 
-def _build_parent(src_dir):
-    """ctypes handles of an earlier K2 and K1 (bm25_topk.cu and
-    cross_intra_block.cu in src_dir), built with the port's flags into
-    build/parent/."""
-    out_dir = os.path.join(os.path.dirname(_build.BUILD_DIR), "parent")
-    os.makedirs(out_dir, exist_ok=True)
-    jobs = {}
-    for name in ("bm25_topk", "cross_intra_block"):
-        out = os.path.join(out_dir, name + ".so")
-        jobs[name] = (out, subprocess.Popen(
-            [_build._nvcc()] + _build.NVCC_FLAGS
-            + ["-o", out, os.path.join(src_dir, name + ".cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (out, proc) in jobs.items():
-        text, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError("nvcc failed for the parent's {}:\n{}".format(name, text))
-        libs[name] = ctypes.CDLL(out)
-    return libs
-
-
-def _parent_k2(lib, q, idf, db_T, N, K):
-    """The earlier K2 through its own C interface and launch geometry
-    (one query per thread, parts for ~8 CTAs per SM, [P, B, K] scratch)."""
-    B, F = q.shape
-    C = db_T.shape[1]
-    tile = lib.bm25_topk_tile_rows()
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    parts = max(1, min(-(-8 * sms // -(-B // lib.bm25_topk_threads())), -(-C // tile),
-                       65535))
-    rows = -(-C // parts)
-    parts = -(-C // rows)
-    out_v = torch.empty((B, K), dtype=torch.float32, device=q.device)
-    out_i = torch.empty((B, K), dtype=torch.int32, device=q.device)
-    part_v = torch.empty((parts if parts > 1 else 0, B, K), dtype=torch.float32,
-                         device=q.device)
-    part_i = torch.empty_like(part_v, dtype=torch.int32)
-    fn = lib.bm25_topk_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 5
-    fn.restype = ctypes.c_int
-    _build.check(fn(q.data_ptr(), idf.data_ptr(), db_T.data_ptr(), B, F, C, N, K, parts,
-                    rows, part_v.data_ptr(), part_i.data_ptr(), out_v.data_ptr(),
-                    out_i.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream),
-                 "parent bm25_topk")
-    return out_v, out_i
-
-
-def _parent_k1(lib, x, p, heads, dim_head, project_out):
-    """The earlier K1 through its C interface (the same as K1's)."""
-    B, t, s, d = x.shape
-    out = torch.empty_like(x)
-    ptrs = [None if p.get(n) is None else p[n].data_ptr() for n in k1.PARAM_ORDER]
-    fn = lib.cross_intra_block_launch
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
-    _build.check(fn(x.data_ptr(), out.data_ptr(), B, t, s, d, heads, dim_head,
-                    p["ff_w1"].shape[0], int(project_out), (ctypes.c_void_p * 14)(*ptrs),
-                    torch.cuda.current_stream(x.device).cuda_stream), "parent K1")
-    return out
-
-
-def compare_parent(src_dir, seed, device):
-    """K2 and K1 against an earlier version of them (their sources in
-    src_dir), on one card, in turns (earlier, now, now, earlier), device
-    time by torch.profiler, at the main path's shapes; each also checked
-    equal (K2) or close (K1) to the earlier one's output."""
-    libs = _build_parent(src_dir)
-    rng = np.random.RandomState(seed)
-    pool, test = mltag_arrays(seed, MLTAG_POOL_ROWS, MLTAG_TEST_ROWS)
-    used = MLTAG_RETRIEVAL["used_col_indices"]
-    K = MLTAG_RETRIEVAL["topK"]
-    cases = []
-    for B in (4096, MLTAG_RETRIEVAL["qry_batch_size"]):
-        _, (q, idf, db_T, N, _) = _k2_case(pool[:, used].astype(np.int64),
-                                           test[:B, used].astype(np.int64), K, device, True)
-        cases.append(("K2 B={} against {} rows".format(B, N), "bm25_",
-                      lambda q=q, idf=idf, db_T=db_T, N=N: _parent_k2(
-                          libs["bm25_topk"], q, idf, db_T, N, K),
-                      lambda q=q, idf=idf, db_T=db_T, N=N: k2.bm25_topk(q, idf, db_T, N, K)))
-    d, heads, dh = (MLTAG_PARAMS[k] for k in ("embedding_dim", "num_heads", "dim_head"))
-    p = _k1_weights(rng, d, heads, dh, MLTAG_PARAMS["scale_dim"] * d, True, device)
-    x = torch.from_numpy(rng.randn(4096, 1 + K, len(used) + 1, d).astype(np.float32)).to(device)
-    cases.append(("K1 B=4096 ML-Tag block", "cross_intra_block_kernel",
-                  lambda: _parent_k1(libs["cross_intra_block"], x, p, heads, dh, True),
-                  lambda: k1.cross_intra_block(x, p, heads, dh, True)))
-    for label, key, before, now in cases:
-        a, b = before(), now()
-        torch.cuda.synchronize()
-        same = all(torch.equal(u, v) for u, v in zip(a, b)) if key == "bm25_" \
-            else bool(torch.allclose(a, b, rtol=1e-4, atol=1e-5))
-        if not same:
-            raise AssertionError("{}: the two versions disagree".format(label))
-        ms = [_kernel_ms(f, 20, key) for f in (before, now, now, before)]
-        print("parent vs now, {}: device ms {:.4f} / {:.4f} / {:.4f} / {:.4f} "
-              "(earlier, now, now, earlier), {:.2f}x".format(
-                  label, *ms, (ms[0] + ms[3]) / (ms[1] + ms[2])))
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--parent", metavar="DIR",
-                    help="only time K2 and K1 against earlier sources of them "
-                         "(bm25_topk.cu and cross_intra_block.cu in DIR)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -883,10 +800,6 @@ def main(argv=None):
     _build.build_all()
     print("build: {:.1f} s".format(time.perf_counter() - t0))
     _print_build_report(device)
-    if args.parent:
-        compare_parent(args.parent, args.seed, device)
-        print(smi.splitlines()[0])
-        return 0
 
     rng = np.random.RandomState(args.seed)
     t0 = time.perf_counter()

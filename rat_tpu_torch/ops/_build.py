@@ -4,9 +4,8 @@ Each ``rat_tpu_torch/csrc/<name>.cu`` has a plain C interface and is
 compiled by ``nvcc`` into its own shared library under
 ``build/kernels/`` at the root of the checkout, at first use, then
 loaded with ``ctypes``. A library's file name carries a hash of its
-source, the headers under ``csrc/`` and the flags, so an edited source
-or header rebuilds and an unchanged one is reused. All sources compile
-in parallel, one ``nvcc`` each.
+source and flags, so an edited source rebuilds and an unchanged one is
+reused. All sources compile in parallel, one ``nvcc`` each.
 
 No PyTorch header is included: such a build takes minutes, a plain C
 one seconds. Nothing here runs at import time.
@@ -43,13 +42,8 @@ def _sources():
 
 
 def _lib_path(name):
-    """The library's path, named by a hash of its source, every header
-    under csrc/ (so that an edited header rebuilds) and the flags."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
-    for fname in [name + ".cu"] + headers:
-        with open(os.path.join(CSRC_DIR, fname), "rb") as fh:
-            digest.update(fname.encode() + b"\0" + fh.read())
+    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as fh:
+        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, "{}-{}.so".format(name, digest.hexdigest()[:16]))
 
 

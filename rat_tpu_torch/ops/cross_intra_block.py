@@ -72,8 +72,7 @@ def cross_intra_block_reference(x, params, heads, dim_head, project_out=True):
 
 
 def smem_bytes_per_sample(t, s, d, dim_head):
-    """Shared memory the kernel needs for one sample (one warp's area),
-    or -1 if (d, dim_head) is not a compiled width."""
+    """Shared memory the kernel needs for one sample (one warp's area)."""
     fn = _build.load("cross_intra_block").cross_intra_block_smem_per_sample
     fn.argtypes = [ctypes.c_int] * 4
     fn.restype = ctypes.c_longlong
@@ -118,11 +117,6 @@ def _forward(x, params, heads, dim_head, project_out):
     lib = _build.load("cross_intra_block")
     need = smem_bytes_per_sample(t, s, d, dim_head)
     limit = lib.cross_intra_block_max_smem_bytes()
-    if need < 0:
-        raise ValueError("cross_intra_block: d={} dim_head={} is not a width the "
-                         "kernel is compiled for (csrc/cross_intra_block.cu::"
-                         "with_width: the configs' (10, 10) and (40, 10))".format(
-                             d, dim_head))
     if need > limit:
         raise ValueError("cross_intra_block: one sample of shape t={} s={} d={} "
                          "heads={} dim_head={} needs {} bytes of shared memory, "
