@@ -47,6 +47,22 @@ Phases, any failure exits non-zero:
 7. train profile — 20 more train steps timed, then under
              torch.profiler: device time by kernel, K1's forward
              against the autograd backward of the block, idle share.
+8. kkbox_train — RAT_m2 at the full width of the KKBox config
+             (configs/RAT_m2/kkbox_x1: d=40, 8 heads, BatchNorm,
+             embedding dropout, two sequence fields, the wide tower) on
+             KKBox-shaped data made from the seed, its rows cut for
+             chip time: 10-fold self-retrieval over the 11 retrieval
+             fields (K2 at F=11), one epoch of Trainer.fit on the module
+             path (the gate keeps K1 off), the reload, K2's neighbours
+             and the card's eval logits held against plain and CPU
+             runs, K2 at F=11 held to its plain version and timed at
+             the valid split's 2400-query batch, then a short profile
+             and the step's device-time split.
+9. variants — RAT_m0, RAT_m1 and RAT_m3 at the full widths of their
+             ML-Tag configs on the train phase's data and neighbours:
+             one step on the card against the same step on the CPU,
+             one epoch of Trainer.fit, the reload, steady ms per step
+             and a short profile (device time per step, idle share).
 
 The line before the last is the kernel table as JSON; the last line
 says the run was ok, and names the device. Without CUDA the script
@@ -70,6 +86,7 @@ from rat_tpu_torch.data.loader import DataGenerator
 from rat_tpu_torch.engine import Trainer
 from rat_tpu_torch.engine.trainer import _gather_batch
 from rat_tpu_torch.features import FeatureMap
+from rat_tpu_torch.models import build_model
 from rat_tpu_torch.ops import _build
 from rat_tpu_torch.ops import bm25_score_chunk as k3
 from rat_tpu_torch.ops import bm25_topk as k2
@@ -106,6 +123,38 @@ MLTAG_RETRIEVAL = {
 MLTAG_VOCAB = {"user_id": 16_973, "item_id": 23_745, "tag_id": 49_659}
 MLTAG_POOL_ROWS = 1_404_801
 MLTAG_TEST_ROWS = 200_686
+
+# RAT_m2_kkbox_x1_10fold_retrieval at its published widths and training
+# settings (configs/RAT_m2/kkbox_x1/model_config.yaml), plus the fused
+# kernel path switch, which the JAX gate turns off for this config
+# (BatchNorm, embedding dropout)
+KKBOX_PARAMS = dict(MLTAG_PARAMS, **{
+    "model_id": "RAT_m2_kkbox_x1_10fold_retrieval",
+    "dataset_id": "kkbox_x1_10fold_retrieval",
+    "embedding_dim": 40, "num_heads": 8, "dim_head": 10, "depth": 4, "scale_dim": 2,
+    "batch_norm": True, "emb_dropout": 0.1, "embedding_regularizer": 0.0005})
+# the dataset's fields in column order (configs/RAT_m2/kkbox_x1/
+# dataset_config.yaml): vocabulary sizes chosen so the packed table holds
+# ~92K rows, which at d=40 gives the real set's parameter count
+# (4,714,649, BASELINE.md) within a few percent; the two sequence fields
+# are 3 long, MaskedSumPooling, padded with id vocab - 1
+KKBOX_VOCAB = {"msno": 25_000, "song_id": 54_000, "source_system_tab": 10,
+               "source_screen_name": 21, "source_type": 13, "city": 22, "gender": 4,
+               "registered_via": 6, "language": 11, "genre_ids": 350,
+               "artist_name": 12_000, "isrc": 110, "bd": 10}
+KKBOX_SEQUENCES = ("genre_ids", "artist_name")
+KKBOX_RETRIEVAL = {
+    "used_cols": ["msno", "song_id", "source_system_tab", "source_screen_name",
+                  "source_type", "city", "gender", "registered_via", "language",
+                  "isrc", "bd"],
+    "exact_match_cols": [], "split_type": "10-fold", "label_wise": False,
+    "pre_retrieval": True, "qry_batch_size": 2400, "db_chunk_size": 50000, "topK": 5,
+    "exact_match_col_indices": None,
+}
+# rows cut for chip time only: the real split has 5,901,932 train and
+# 737,743 valid rows (BASELINE.md); 409,600 rows are 100 steps of 4096
+KKBOX_TRAIN_ROWS = 409_600
+KKBOX_VALID_ROWS = 51_200
 
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
 # and HBM3 bandwidth
@@ -172,6 +221,28 @@ def _serve_path(device, seed, pool, test, batch_size):
                                       "scoring_ms": (t3 - t2) * 1e3}
 
 
+def check_neighbours(gen, pool, queries, retrieval, device, phase, n_chk=512):
+    """The first ``n_chk`` queries' neighbours, scores and counts in
+    ``gen`` (retrieved from ``pool``) against the plain scan's, exactly."""
+    n_chk = min(n_chk, len(queries))
+    K = retrieval["topK"]
+    used = retrieval["used_col_indices"]
+    tables = bm25._compute_idf_tables(pool[:, used].astype(np.int64))
+    db_T = torch.zeros((len(used), max(len(pool), K)), dtype=torch.int32,
+                       device=device)
+    db_T[:, :len(pool)] = torch.from_numpy(pool[:, used].T.astype(np.int32)).to(device)
+    q = torch.from_numpy(np.ascontiguousarray(queries[:n_chk, used],
+                                              dtype=np.int32)).to(device)
+    idf = bm25._idf_lookup_dense(q, *bm25._pack_idf_dense(tables, device))
+    v, i, lens = bm25._finalize(*k2.bm25_topk_reference(q, idf.contiguous(), db_T,
+                                                       len(pool), K), False)
+    for got, want in ((gen.retr_indices[:n_chk], i), (gen.retr_values[:n_chk], v),
+                      (gen.retr_lens[:n_chk], lens)):
+        if not np.array_equal(got, want.cpu().numpy().astype(got.dtype)):
+            raise AssertionError(phase + ": retrieval differs from the plain scan")
+    return n_chk
+
+
 def serve(device, seed, pool, test, batch_size):
     """Run the main path with the launch counts zeroed just before and
     read just after, then check its outputs: finite predictions in
@@ -186,23 +257,9 @@ def serve(device, seed, pool, test, batch_size):
     if y_pred.shape != (len(test),) or not np.all(np.isfinite(y_pred)) \
             or y_pred.min() < 0 or y_pred.max() > 1:
         raise AssertionError("serve: predictions of bad shape or range")
-    n_chk = min(512, len(test))
-    K = MLTAG_RETRIEVAL["topK"]
-    used = MLTAG_RETRIEVAL["used_col_indices"]
-    tables = bm25._compute_idf_tables(pool[:, used].astype(np.int64))
-    db_T = torch.zeros((len(used), max(len(pool), K)), dtype=torch.int32,
-                       device=device)
-    db_T[:, :len(pool)] = torch.from_numpy(pool[:, used].T.astype(np.int32)).to(device)
-    q = torch.from_numpy(np.ascontiguousarray(test[:n_chk, used], dtype=np.int32)).to(device)
-    idf = bm25._idf_lookup_dense(q, *bm25._pack_idf_dense(tables, device))
-    v, i, lens = bm25._finalize(*k2.bm25_topk_reference(q, idf.contiguous(), db_T,
-                                                       len(pool), K), False)
-    for got, want in ((gen.retr_indices[:n_chk], i), (gen.retr_values[:n_chk], v),
-                      (gen.retr_lens[:n_chk], lens)):
-        if not np.array_equal(got, want.cpu().numpy().astype(got.dtype)):
-            raise AssertionError("serve: retrieval differs from the plain scan")
-    X, y, _ = _gather_batch(data, torch.arange(min(batch_size, len(test)),
-                                               device=device))
+    check_neighbours(gen, pool, test, MLTAG_RETRIEVAL, device, "serve")
+    X, y, _, _ = _gather_batch(data, torch.arange(min(batch_size, len(test)),
+                                                  device=device))
     with torch.no_grad():
         plain = trainer.model(X, y)["y_pred"][:, 0].cpu().numpy()
     plain_err = float(np.abs(plain - y_pred[:len(plain)]).max())
@@ -545,43 +602,65 @@ def check_k1_grad(rng, device):
             "plain_fwd_bwd_ms": _cuda_ms(lambda: timed(k1.cross_intra_block_reference), 20)}
 
 
-def _grads(trainer, data, idx, valid, use_pallas):
-    """Loss and {name: gradient} of one step on the fused or the module
-    path, without an optimizer step."""
-    trainer.params = dict(trainer.params, use_pallas=use_pallas)
+def _grads(trainer, data, idx, valid):
+    """Loss and {name: gradient} of one train step, without an optimizer
+    step."""
     loss = trainer.loss_and_grads(data, idx, valid)
-    grads = {n: torch.zeros_like(w) if w.grad is None else w.grad.clone()
+    grads = {n: torch.zeros_like(w, device="cpu") if w.grad is None
+             else w.grad.detach().cpu()
              for n, w in trainer.model.named_parameters()}
+    trainer.optimizer.zero_grad(set_to_none=True)
     return loss.item(), grads
+
+
+def _compare_steps(label, names, a, b):
+    """Two (loss, gradients) of one step: losses within 1e-5, every
+    gradient within rtol 2e-3 / atol 1e-4 (float32 sums in another
+    order; on a GPU the embedding gradients also accumulate with
+    atomics). Prints one line; returns the worst errors."""
+    (loss_a, grads_a), (loss_b, grads_b) = a, b
+    loss_err = abs(loss_a - loss_b)
+    worst, worst_name, ok = 0.0, "", loss_err <= 1e-5
+    for n in grads_a:
+        err = (grads_a[n] - grads_b[n]).abs()
+        if not bool((err <= 1e-4 + 2e-3 * grads_b[n].abs()).all()):
+            ok = False
+            print("{}: gradient of {} differs by {:.3e}".format(label, n, err.max().item()))
+        if err.max().item() >= worst:
+            worst, worst_name = err.max().item(), n
+    print("{}: {} loss {:.8f}, {} loss {:.8f}, |diff| {:.3e} (tol 1e-5); worst gradient "
+          "error {:.3e} at {} (rtol 2e-3, atol 1e-4) {}".format(
+              label, names[0], loss_a, names[1], loss_b, loss_err, worst, worst_name,
+              "ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError("{}: the {} step disagrees with the {} step".format(
+            label, *names))
+    return {"loss_abs_err": loss_err, "grad_max_abs_err": worst}
 
 
 def one_step_check(trainer, data, batch_size):
     """The fused train step against the module path from the same weights
-    and batch: losses within 1e-5, every gradient within rtol 2e-3 /
-    atol 1e-4 (float32 sums in another order; on a GPU the embedding
-    gradients also accumulate with atomics). Returns the worst errors."""
+    and batch (tolerances as :func:`_compare_steps`)."""
     idx = torch.arange(batch_size, device=trainer.device)
-    fused_loss, fused = _grads(trainer, data, idx, batch_size, True)
-    module_loss, module = _grads(trainer, data, idx, batch_size, False)
+    steps = []
+    for use_pallas in (True, False):
+        trainer.params = dict(trainer.params, use_pallas=use_pallas)
+        steps.append(_grads(trainer, data, idx, batch_size))
     trainer.params = dict(trainer.params, use_pallas=True)
-    trainer.optimizer.zero_grad(set_to_none=True)
-    loss_err = abs(fused_loss - module_loss)
-    worst, worst_name, ok = 0.0, "", loss_err <= 1e-5
-    for n in fused:
-        err = (fused[n] - module[n]).abs()
-        if not bool((err <= 1e-4 + 2e-3 * module[n].abs()).all()):
-            ok = False
-            print("one-step: gradient of {} differs by {:.3e}".format(n, err.max().item()))
-        if err.max().item() >= worst:
-            worst, worst_name = err.max().item(), n
-    print("one-step: fused loss {:.8f}, module loss {:.8f}, |diff| {:.3e} (tol 1e-5); "
-          "worst gradient error {:.3e} at {} (rtol 2e-3, atol 1e-4) {}".format(
-              fused_loss, module_loss, loss_err, worst, worst_name,
-              "ok" if ok else "FAIL"))
-    if not ok:
-        raise AssertionError("one-step: the fused train step disagrees with "
-                             "the module path")
-    return {"loss_abs_err": loss_err, "grad_max_abs_err": worst}
+    return _compare_steps("one-step", ("fused", "module"), *steps)
+
+
+def cpu_step_check(trainer, gen, batch_size, label):
+    """One train step on the trainer's device against the same step, from
+    the same weights and batch, on the CPU (a reference run, named as
+    such; tolerances as :func:`_compare_steps`)."""
+    cpu = Trainer(trainer.feature_map, trainer.params, device="cpu")
+    cpu.model.load_state_dict({k: v.cpu() for k, v in trainer.model.state_dict().items()})
+    idx = np.arange(batch_size)
+    card = _grads(trainer, trainer.device_split(gen),
+                  torch.from_numpy(idx).to(trainer.device), batch_size)
+    ref = _grads(cpu, cpu.device_split(gen), torch.from_numpy(idx), batch_size)
+    return _compare_steps(label, (trainer.device.type, "CPU reference"), card, ref)
 
 
 def _k2_batches(n_queries, retrieval):
@@ -668,25 +747,37 @@ def train(device, seed, pool, test, batch_size, model_root):
         one_step=one_step, launches=launches)
 
 
-def profile_train(trainer, train_gen, seed, steps=20, rows=15):
+def _train_batches(trainer, train_gen, seed, n):
+    order = train_gen.epoch_index_batches(rng=np.random.RandomState(seed))
+    return [(torch.from_numpy(i).to(trainer.device), v)
+            for (i, v), _ in zip(order, range(n))]
+
+
+def steady_ms_per_step(trainer, train_gen, seed, steps=20, batches=None):
+    """Host-clock ms per train step over ``steps`` steps after two
+    warm-up steps, ending in a synchronize."""
+    data = trainer._train_data
+    batches = batches or _train_batches(trainer, train_gen, seed, steps + 2)
+    sync = torch.cuda.synchronize if trainer.device.type == "cuda" else (lambda: None)
+    for idx, valid in batches[:2]:
+        trainer.train_step(data, idx, valid)
+    sync()
+    t0 = time.perf_counter()
+    for idx, valid in batches[2:steps + 2]:
+        trainer.train_step(data, idx, valid)
+    sync()
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
+def profile_train(trainer, train_gen, seed, steps=20, rows=15, label="train"):
     """Steady-state ms per train step over ``steps`` steps (host clock
     around a synchronize), then the same number of steps under
     torch.profiler: device time by kernel, K1's forward kernel against
     the autograd backward of the blocks, and the idle share."""
     from torch.profiler import ProfilerActivity, profile
     data = trainer._train_data
-    order = train_gen.epoch_index_batches(rng=np.random.RandomState(seed))
-    batches = [(torch.from_numpy(i).to(trainer.device), v)
-               for (i, v), _ in zip(order, range(2 * steps + 2))]
-    trainer.model.train()
-    for idx, valid in batches[:2]:
-        trainer.train_step(data, idx, valid)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for idx, valid in batches[2:steps + 2]:
-        trainer.train_step(data, idx, valid)
-    torch.cuda.synchronize()
-    ms_per_step = (time.perf_counter() - t0) * 1e3 / steps
+    batches = _train_batches(trainer, train_gen, seed, 2 * steps + 2)
+    ms_per_step = steady_ms_per_step(trainer, train_gen, seed, steps, batches)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for idx, valid in batches[steps + 2:]:
@@ -703,16 +794,18 @@ def profile_train(trainer, train_gen, seed, steps=20, rows=15):
                     if e.device_type == torch.autograd.DeviceType.CPU
                     and e.key.startswith("autograd::engine::evaluate_function")
                     and "CrossIntraBlockBackward" in e.key) / 1e3
-    print("train profile: {} steps, wall {:.3f} ms, device busy {:.3f} ms, idle share "
+    print("{} profile: {} steps, wall {:.3f} ms, device busy {:.3f} ms, idle share "
           "{:.4f} (host slowed by the profiler; device {:.3f} ms per step against "
           "{:.3f} ms of wall per step without it)".format(
-              steps, wall_ms, busy_ms, 1 - busy_ms / wall_ms, busy_ms / steps,
+              label, steps, wall_ms, busy_ms, 1 - busy_ms / wall_ms, busy_ms / steps,
               ms_per_step))
-    print("train profile: K1 forward kernel {:.3f} ms, block backward (autograd of the "
-          "plain block, recomputed) {:.3f} ms of device time".format(k1_fwd_ms, k1_bwd_ms))
+    if k1_fwd_ms:
+        print("{} profile: K1 forward kernel {:.3f} ms, block backward (autograd of the "
+              "plain block, recomputed) {:.3f} ms of device time".format(
+                  label, k1_fwd_ms, k1_bwd_ms))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:rows]:
-        print("train profile: {:10.3f} ms {:6d} calls  {}".format(
-            e.self_device_time_total / 1e3, e.count, e.key[:100]))
+        print("{} profile: {:10.3f} ms {:6d} calls  {}".format(
+            label, e.self_device_time_total / 1e3, e.count, e.key[:100]))
     return {"ms_per_step": ms_per_step,
             "steady_examples_per_s": train_gen.batch_size / ms_per_step * 1e3,
             "profile_wall_ms": wall_ms, "profile_busy_ms": busy_ms,
@@ -720,6 +813,271 @@ def profile_train(trainer, train_gen, seed, steps=20, rows=15):
             "device_ms_per_step": busy_ms / steps,
             "device_ops_per_step": sum(e.count for e in kernels) / steps,
             "k1_forward_device_ms": k1_fwd_ms, "block_backward_device_ms": k1_bwd_ms}
+
+
+def kkbox_feature_map(vocab=None):
+    """The KKBox feature map: 11 categorical and 2 sequence fields."""
+    fm = FeatureMap("kkbox_x1_10fold_retrieval", ".")
+    for name, size in (vocab or KKBOX_VOCAB).items():
+        fm.feature_specs[name] = {"source": "", "type": "categorical", "vocab_size": size}
+        if name in KKBOX_SEQUENCES:
+            fm.feature_specs[name].update(type="sequence", max_len=3,
+                                          encoder="MaskedSumPooling")
+    fm.set_feature_index()
+    fm.num_fields = len(fm.feature_specs)
+    fm.num_features = sum(spec["vocab_size"] for spec in fm.feature_specs.values())
+    return fm
+
+
+def kkbox_retrieval(fm):
+    return dict(KKBOX_RETRIEVAL, used_col_indices=[
+        fm.feature_specs[c]["index"] for c in KKBOX_RETRIEVAL["used_cols"]])
+
+
+def kkbox_arrays(seed, n_train, n_valid, vocab=None, zipf_a=1.05):
+    """(train, valid) float64 rows of the KKBox map's 17 id columns and a
+    0/1 label. Ids follow a Zipf law over each vocabulary (id 0 is left
+    for the out-of-vocabulary slot); a sequence holds 1 to 3 ids and is
+    padded with vocab - 1. Labels come from latent per-id propensities,
+    about half positive."""
+    rng = np.random.RandomState(seed)
+    fm = kkbox_feature_map(vocab)
+    n = n_train + n_valid
+    cols, logit = [], np.zeros(n)
+    for name, spec in fm.feature_specs.items():
+        size = spec["vocab_size"]
+        real = size - 1 if spec["type"] == "sequence" else size
+        p = 1.0 / np.arange(1, real) ** zipf_a
+        effect = rng.normal(0, 0.6, size)
+        effect[real:] = 0.0
+        width = spec.get("max_len", 1)
+        ids = 1 + rng.choice(real - 1, (n, width), p=p / p.sum())
+        if spec["type"] == "sequence":
+            ids[np.arange(width)[None, :] >= rng.randint(1, width + 1, (n, 1))] = size - 1
+        cols.append(ids)
+        logit += effect[ids].sum(axis=1)
+    label = rng.uniform(size=n) < 1.0 / (1.0 + np.exp(-logit))
+    rows = np.concatenate(cols + [label[:, None]], axis=1).astype(np.float64)
+    return rows[:n_train], rows[n_train:]
+
+
+def _bn_buffers(model):
+    return {n: b.detach().clone() for n, b in model.named_buffers() if "running_" in n}
+
+
+def kkbox_train(device, seed, train, valid, batch_size, model_root, vocab=None):
+    """RAT_m2 at KKBox width trained as a user drives it: the train rows
+    with 10-fold self-retrieval over the 11 retrieval fields (K2 at
+    F=11), the valid rows retrieved against them, Trainer.fit for one
+    epoch on the module path, the best checkpoint reloaded. Checks: no
+    K1 launch (the gate), K2's launch count, finite losses, BatchNorm's
+    running statistics moved, the reload gives the monitored AUC, AUC
+    above 0.5, the neighbours of 512 valid queries equal the plain
+    scan's, and the card's eval-mode logits of 512 valid rows within
+    1e-5 of the same weights run on the CPU (a reference run). Returns
+    (trainer, train generator, dict of results)."""
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    fm = kkbox_feature_map(vocab)
+    retrieval = kkbox_retrieval(fm)
+    common = dict(batch_size=batch_size, feature_map=fm, retrieval_augmented=True,
+                  device=device)
+    k2.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    train_gen = DataGenerator(data_array=train, shuffle=True,
+                              retrieval_configs=dict(retrieval),
+                              retrieval_pool_fname="self", **common)
+    sync()
+    t1 = time.perf_counter()
+    valid_gen = DataGenerator(data_array=valid, pool_array=train,
+                              retrieval_configs=dict(retrieval),
+                              retrieval_pool_fname="kkbox_train", **common)
+    sync()
+    t2 = time.perf_counter()
+    k2_launches = k2.launches
+    n_chk = check_neighbours(valid_gen, train, valid, retrieval, device, "kkbox_train")
+    k2_f11 = {}
+    if cuda:
+        # K2 at the valid split's batch (2400 queries against the train
+        # rows, F=11), equal to its plain version, then timed; these
+        # launches are not the path's
+        used, batch = retrieval["used_col_indices"], retrieval["qry_batch_size"]
+        same, args = _k2_case(train[:, used].astype(np.int64),
+                              valid[:batch, used].astype(np.int64), retrieval["topK"],
+                              device, pad4=True)
+        if not same:
+            raise AssertionError("kkbox_train: K2 at F=11 disagrees with its plain version")
+        k2_f11 = dict(zip(("ms", "call_ms", "plain_ms", "bound_ms", "bound_by"),
+                          _k2_times(*args)))
+        print("K2 kkbox_b{}_pool N={} F=11 K={}: equal (exact), {:.4f} ms (bound {:.4f} "
+              "ms)".format(batch, len(train), retrieval["topK"], k2_f11["ms"],
+                           k2_f11["bound_ms"]))
+
+    params = dict(KKBOX_PARAMS, batch_size=batch_size, seed=seed, model_root=model_root)
+    trainer = Trainer(fm, params, device=device)
+    if trainer._use_fast_forward():
+        raise AssertionError("kkbox_train: the gate let a BatchNorm and dropout model "
+                             "onto the fused path")
+    bn_before = _bn_buffers(trainer.model)
+    k1.launches = 0
+    sync()
+    t3 = time.perf_counter()
+    trainer.fit(train_gen, valid_gen, epochs=1)
+    sync()
+    t4 = time.perf_counter()
+    k1_launches = k1.launches
+
+    losses = np.asarray(trainer.step_losses)
+    if len(losses) != len(train_gen) or not np.all(np.isfinite(losses)):
+        raise AssertionError("kkbox_train: {} step losses for {} batches, finite: {}"
+                             .format(len(losses), len(train_gen),
+                                     bool(np.all(np.isfinite(losses)))))
+    bn_after = _bn_buffers(trainer.model)
+    if not bn_before or any(torch.equal(bn_before[n], bn_after[n]) for n in bn_before):
+        raise AssertionError("kkbox_train: BatchNorm's running statistics did not move")
+    best = trainer._best_metric
+    trainer.load_weights(trainer.checkpoint)
+    logs = trainer.evaluate(valid_gen, data=trainer._valid_data)
+    if abs(logs["AUC"] - best) > 1e-6 or not logs["AUC"] > 0.5:
+        raise AssertionError("kkbox_train: the reloaded best weights give AUC {} against "
+                             "the monitored {} (must be above 0.5)".format(logs["AUC"], best))
+
+    # the card's eval-mode logits against the same weights on the CPU
+    idx = torch.arange(min(512, len(valid)), device=trainer.device)
+    X, y, Xf, _ = _gather_batch(trainer._valid_data, idx)
+    cpu_model = build_model(fm, params)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in trainer.model.state_dict().items()})
+    with torch.no_grad():
+        got = trainer.model(X, y, Xf)["y_pred"].cpu()
+        want = cpu_model.eval()(X.cpu(), y.cpu(),
+                                None if Xf is None else Xf.cpu())["y_pred"]
+    logits_err = float((got - want).abs().max())
+    if logits_err > 1e-5:
+        raise AssertionError("kkbox_train: the card's logits differ from the CPU "
+                             "reference run's by {}".format(logits_err))
+
+    folds = int(retrieval["split_type"].split("-")[0])
+    fold_size = -(-len(train) // folds)
+    fold_rows = [len(train[i * fold_size:(i + 1) * fold_size]) for i in range(folds)]
+    expected = {"cross_intra_block": 0,
+                "bm25_topk": sum(_k2_batches(r, retrieval) for r in fold_rows)
+                + _k2_batches(len(valid), retrieval) if cuda else 0}
+    launches = {"cross_intra_block": k1_launches, "bm25_topk": k2_launches}
+    if launches != expected:
+        raise AssertionError("kkbox_train: launches {} against the expected {}".format(
+            launches, expected))
+    return trainer, train_gen, dict(
+        {"train_rows": len(train), "valid_rows": len(valid),
+         "rows_cut_from": "5,901,932 train / 737,743 valid (BASELINE.md), for chip time",
+         "fields": fm.num_fields, "retrieval_fields": len(retrieval["used_cols"]),
+         "parameters": sum(p.numel() for p in trainer.model.parameters()),
+         "steps": len(losses), "valid_batches": len(valid_gen),
+         "fold_retrieval_ms": (t1 - t0) * 1e3, "valid_retrieval_ms": (t2 - t1) * 1e3,
+         "epoch_s": t4 - t3, "epoch_examples_per_s": len(train) / (t4 - t3),
+         "first_step_loss": float(losses[0]), "last_step_loss": float(losses[-1]),
+         "best_AUC": best, "AUC": logs["AUC"], "logloss": logs["logloss"],
+         "neighbours_checked": n_chk, "card_vs_cpu_logits_max_abs_err": logits_err},
+        k2_f11=k2_f11, launches=launches)
+
+
+def step_split(trainer, train_gen, seed, reps=5):
+    """Device time (torch.profiler, ms per call) of one train batch's
+    parts, each forward and backward on its own: the embedding gathers
+    and their backward, the encoder (forward alone, then with its
+    backward), and the DNN with its BatchNorm; BatchNorm's running
+    statistics are put back afterwards."""
+    model = trainer.model
+    saved = _bn_buffers(model)
+    model.train()
+    idx, _ = _train_batches(trainer, train_gen, seed, 1)[0]
+    X, y, Xf, _ = _gather_batch(trainer._train_data, idx)
+    with torch.no_grad():
+        feature_emb, grid = model.grid(X, y, Xf)
+    target = feature_emb[:, 0].reshape(len(X), -1)
+
+    def backward(out):
+        out.backward(torch.ones_like(out))
+
+    def embedding():
+        backward(model.grid(X, y, Xf)[1])
+
+    def encoder_fwd():
+        with torch.no_grad():
+            model.encoder(model.emb_drop(grid))
+
+    def encoder():
+        backward(model.encoder(model.emb_drop(grid.requires_grad_())))
+
+    def dnn():
+        backward(model.dnn(target.requires_grad_()))
+
+    split = {name: _kernel_ms(fn, reps, "") for name, fn in (
+        ("embedding_fwd_bwd", embedding), ("encoder_fwd", encoder_fwd),
+        ("encoder_fwd_bwd", encoder), ("dnn_bn_fwd_bwd", dnn))}
+    trainer.optimizer.zero_grad(set_to_none=True)
+    with torch.no_grad():
+        for n, b in model.named_buffers():
+            if n in saved:
+                b.copy_(saved[n])
+    model.eval()
+    return split
+
+
+# RAT_m0, RAT_m1 and RAT_m3 at the widths and settings of their ML-Tag
+# configs (configs/RAT_m{0,1,3}/movielenslatest_x1/model_config.yaml):
+# the ML-Tag RAT_m2 settings, without the fused path switch
+VARIANT_PARAMS = {
+    name: dict({k: v for k, v in MLTAG_PARAMS.items() if k != "use_pallas"},
+               model=name, model_id=name + "_movielenslatest_x1_10fold_retrieval")
+    for name in ("RAT_m0", "RAT_m1", "RAT_m3")}
+
+
+def variants(device, seed, train_gen, valid_gen, batch_size, model_root):
+    """RAT_m0, RAT_m1 and RAT_m3 on the train phase's generators (their
+    neighbours already retrieved): for each, one train step on the device
+    against the same step on the CPU, Trainer.fit for one epoch, the best
+    checkpoint reloaded, and the steady ms per step (on a GPU with a
+    short profile: device time per step, idle share). No kernel is
+    launched in the fits (asserted). Returns {variant: results}."""
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    out = {}
+    for name, base in VARIANT_PARAMS.items():
+        params = dict(base, batch_size=batch_size, seed=seed,
+                      model_root=os.path.join(model_root, name))
+        trainer = Trainer(train_gen.feature_map, params, device=device)
+        one_step = cpu_step_check(trainer, train_gen, batch_size,
+                                  "variants {} one-step".format(name))
+        k1.launches = k2.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        trainer.fit(train_gen, valid_gen, epochs=1)
+        sync()
+        epoch_s = time.perf_counter() - t0
+        launches = {"cross_intra_block": k1.launches, "bm25_topk": k2.launches}
+        if launches != {"cross_intra_block": 0, "bm25_topk": 0}:
+            raise AssertionError("variants {}: launches {} in its fit".format(name, launches))
+        losses = np.asarray(trainer.step_losses)
+        if len(losses) != len(train_gen) or not np.all(np.isfinite(losses)):
+            raise AssertionError("variants {}: bad step losses".format(name))
+        best = trainer._best_metric
+        trainer.load_weights(trainer.checkpoint)
+        logs = trainer.evaluate(valid_gen, data=trainer._valid_data)
+        if abs(logs["AUC"] - best) > 1e-6:
+            raise AssertionError("variants {}: the reloaded best weights give AUC {} "
+                                 "against the monitored {}".format(name, logs["AUC"], best))
+        timing = profile_train(trainer, train_gen, seed, steps=10, rows=5,
+                               label="variants " + name) if cuda \
+            else {"ms_per_step": steady_ms_per_step(trainer, train_gen, seed)}
+        out[name] = dict({"steps": len(losses), "epoch_s": epoch_s,
+                          "AUC": logs["AUC"], "logloss": logs["logloss"],
+                          "one_step": one_step, "launches": launches},
+                         **{k: timing[k] for k in ("ms_per_step", "device_ms_per_step",
+                                                   "idle_share") if k in timing})
+        print("variants {}: {}".format(name, json.dumps(out[name])))
+        del trainer
+    return out
 
 
 def _ptxas_report(name):
@@ -809,6 +1167,7 @@ def main(argv=None):
     kernels = [check_k1(rng, device), check_k2(rng, device, pool, test),
                check_k3(rng, device, pool, test)]
     kernels[0].update(check_k1_grad(rng, device))
+    k3_checks = k3.launches      # K3 is on no path: none may follow
 
     batch_size = MLTAG_PARAMS["batch_size"]
     res = serve(device, args.seed, pool, test, batch_size)
@@ -833,12 +1192,36 @@ def main(argv=None):
               + json.dumps(train_launches))
         print("train steady state: " + json.dumps(
             profile_train(trainer, train_gen, args.seed)))
+
+        kk_train, kk_valid = kkbox_arrays(args.seed, KKBOX_TRAIN_ROWS, KKBOX_VALID_ROWS)
+        kk_trainer, kk_gen, res = kkbox_train(device, args.seed, kk_train, kk_valid,
+                                              batch_size, os.path.join(model_root, "kkbox"))
+        kkbox_launches = res.pop("launches")
+        kernels[1].update({k + "_kkbox_f11": v for k, v in res.pop("k2_f11").items()})
+        print("kkbox_train: " + json.dumps(res))
+        print("kkbox_train launches (asserted: K1 = 0, the gate; K2 = query batches of "
+              "the 10 folds + the valid split): " + json.dumps(kkbox_launches))
+        steady = profile_train(kk_trainer, kk_gen, args.seed, steps=10,
+                               label="kkbox_train")
+        steady["step_split_device_ms"] = step_split(kk_trainer, kk_gen, args.seed)
+        print("kkbox_train steady state: " + json.dumps(steady))
+        del kk_trainer, kk_gen, kk_train, kk_valid
+        torch.cuda.empty_cache()
+
+        res = variants(device, args.seed, train_gen, trainer.valid_gen, batch_size,
+                       model_root)
+        variant_launches = {k: sum(r["launches"][k] for r in res.values())
+                            for k in ("cross_intra_block", "bm25_topk")}
+    if k3.launches != k3_checks:
+        raise AssertionError("K3 was launched on a path")
+    by_path = {"serve": serve_launches, "train": train_launches,
+               "kkbox_train": kkbox_launches, "variants": variant_launches}
     for entry in kernels:
+        counts = {path: launches.get(entry["name"], 0)
+                  for path, launches in by_path.items()}
         if entry["name"] in serve_launches:
-            by_path = {"serve": serve_launches[entry["name"]],
-                       "train": train_launches[entry["name"]]}
-            entry["launches"] = sum(by_path.values())
-            entry["launches_by_path"] = by_path
+            entry["launches"] = sum(counts.values())
+        entry["launches_by_path"] = counts
     print(smi.splitlines()[0])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,8 @@ package so each counterpart is easy to find:
 - BM25 retrieval           -> rat_tpu_torch.retrieval
 - split loading            -> rat_tpu_torch.data
 - NN layers and encoders   -> rat_tpu_torch.nn
-- RAT model (m2)           -> rat_tpu_torch.models
+- the four RAT variants    -> rat_tpu_torch.models (m2's fused path
+                              in models.fast_forward)
 - train and eval runtime   -> rat_tpu_torch.engine (Trainer.fit, Adam
                               with global-norm clipping in engine.optim)
 - Hopper kernels           -> rat_tpu_torch.ops (sources in csrc/): K1

@@ -16,8 +16,12 @@ Each split's token, label and neighbor arrays are uploaded to the
 device once (``device_split``); a step receives only a [B] vector of
 row ids and gathers the (1+K) x (F+1) grid there (``_gather_batch``).
 The final partial batch is padded by repeating row 0: training masks
-the padded rows out of the loss and divides by the valid count, and
-scoring cuts them off. Batch order comes from the Trainer's own
+the padded rows out of the loss and divides by the valid count (they
+still enter BatchNorm's batch statistics, as in the JAX package), and
+scoring cuts them off. Train steps run in ``train()`` mode (dropout,
+BatchNorm's batch statistics and running updates), evaluation in
+``eval()`` mode on the running statistics; the checkpoint is the state
+dict, buffers included. Batch order comes from the Trainer's own
 ``np.random.RandomState(seed)``, as in the JAX package, so both see the
 same batches. Step losses and predictions stay on the device until the
 epoch or the split is done, then come back in one copy.
@@ -36,6 +40,7 @@ import torch
 
 from ..metrics import evaluate_metrics
 from ..models import build_model, rat_m2_fast_forward
+from ..nn.layers import set_dropout_generator
 from ..utils import Monitor, resolve_device
 from .optim import (get_learning_rate, get_optimizer, regularization_loss,
                     set_learning_rate)
@@ -64,12 +69,14 @@ def get_loss_fn(loss):
 
 def _gather_batch(data, idx):
     """Assemble the [B, 1+K, L] grid from device-resident split arrays.
-    Returns (X tokens, y labels, nbr_mask or None — the [B, 1+K] mask of
-    the corrected ``neighbor_padding="mask"`` mode)."""
+    Returns (X tokens, y labels, X_num — the float values of the same
+    columns, or None without numeric fields —, nbr_mask or None — the
+    [B, 1+K] mask of the corrected ``neighbor_padding="mask"`` mode)."""
     Xt = data["tokens"][idx]
     yt = data["labels"][idx]
+    Xf = data["numeric"][idx] if "numeric" in data else None
     if "nbr" not in data:
-        return Xt[:, None, :], yt[:, None], None
+        return Xt[:, None, :], yt[:, None], None if Xf is None else Xf[:, None, :], None
     nb = data["nbr"][idx]                                   # [B, K]
     nmask = None
     if "nbr_ok" in data:
@@ -77,7 +84,9 @@ def _gather_batch(data, idx):
         nmask = torch.cat([torch.ones_like(ok[:, :1]), ok], dim=1)
     X = torch.cat([Xt[:, None, :], data["pool_tokens"][nb]], dim=1)
     y = torch.cat([yt[:, None], data["pool_labels"][nb]], dim=1)
-    return X, y, nmask
+    if Xf is not None:
+        Xf = torch.cat([Xf[:, None, :], data["pool_numeric"][nb]], dim=1)
+    return X, y, Xf, nmask
 
 
 class Trainer(object):
@@ -91,6 +100,13 @@ class Trainer(object):
                 "reference bug-parity or 'mask' for corrected "
                 "semantics)".format(params["neighbor_padding"]))
         self.model = build_model(feature_map, params).to(self.device).eval()
+        # dropout masks come from the Trainer's own generator on the
+        # device, so a run is reproducible without the global RNG
+        self.dropout_generator = torch.Generator(device=self.device).manual_seed(
+            int(params.get("seed", 2021)))
+        set_dropout_generator(self.model, self.dropout_generator)
+        self._has_numeric = any(spec["type"] == "numeric"
+                                for spec in feature_map.feature_specs.values())
         self.model_id = params.get("model_id", params["model"])
         self.model_dir = os.path.join(params.get("model_root") or "./exps/",
                                       feature_map.dataset_id)
@@ -129,12 +145,15 @@ class Trainer(object):
         return self._optimizer
 
     def _use_fast_forward(self):
-        """Fused kernel path: ``use_pallas``, the default variant, relu DNN
-        and parity (wrap) neighbor padding. (The JAX gate also needs no
-        dropout and no BN, which the port's model does not take yet.)"""
+        """The JAX package's gate of its fused path: ``use_pallas``, the
+        default variant, no dropout of any kind, no BatchNorm, relu DNN
+        and parity (wrap) neighbor padding. With the gate false the
+        module path runs, kernel K1 never."""
         m = self.model
         return (bool(self.params.get("use_pallas", False))
                 and m.variant == "default"
+                and m.dropout == 0 and m.emb_dropout == 0
+                and m.net_dropout == 0 and not m.batch_norm
                 and str(m.dnn_activations).lower() == "relu"
                 and self.params.get("neighbor_padding", "wrap") == "wrap")
 
@@ -147,6 +166,8 @@ class Trainer(object):
         darray = gen.darray
         data = {"tokens": up(darray[:, :-1], np.int64),
                 "labels": up(darray[:, -1], np.float32)}
+        if self._has_numeric:
+            data["numeric"] = up(darray[:, :-1], np.float32)
         if gen.retrieval_augmented:
             if gen.retr_lens.ndim != 1:
                 raise ValueError(
@@ -161,6 +182,8 @@ class Trainer(object):
             else:
                 pool_up = {"pool_tokens": up(pool[:, :-1], np.int64),
                            "pool_labels": up(pool[:, -1], np.float32)}
+                if self._has_numeric:
+                    pool_up["pool_numeric"] = up(pool[:, :-1], np.float32)
                 self._pool_device_cache = (pool_key, pool_up)
                 data.update(pool_up)
             data["nbr"] = up(gen.neighbor_gather_indices(), np.int64)
@@ -170,17 +193,20 @@ class Trainer(object):
 
     def _forward(self, data, idx):
         """Gather one batch and run the fused or the module forward."""
-        X, y, nmask = _gather_batch(data, idx)
+        X, y, Xf, nmask = _gather_batch(data, idx)
         if self._use_fast_forward():
-            return rat_m2_fast_forward(self.model, X, y)
-        return self.model(X, y, nbr_mask=nmask)
+            return rat_m2_fast_forward(self.model, X, y, Xf)
+        return self.model(X, y, Xf, nbr_mask=nmask)
 
     # ---- training ---------------------------------------------------------
     def loss_and_grads(self, data, idx, valid):
-        """Forward and backward of one batch (idx: [B] device row ids,
-        the first ``valid`` real). The gradients of the total loss,
-        regularizer included, are left in each parameter's ``.grad``.
-        Returns the loss as a device scalar."""
+        """Forward and backward of one batch in training mode (idx: [B]
+        device row ids, the first ``valid`` real). The padded rows enter
+        BatchNorm's batch statistics, as in the JAX package, but not the
+        loss. The gradients of the total loss, regularizer included, are
+        left in each parameter's ``.grad``. Returns the loss as a device
+        scalar."""
+        self.model.train()
         out = self._forward(data, idx)
         pred = out["y_pred"][:, 0]
         target = out["y_true"][:, 0]

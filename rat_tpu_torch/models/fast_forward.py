@@ -40,16 +40,19 @@ def _block_params(block):
     }
 
 
-def rat_m2_fast_forward(model, X, y):
-    """model: a RATModel (default variant). Returns {"y_pred", "y_true"}
-    equal to ``model(X, y)`` within float tolerance."""
+def rat_m2_fast_forward(model, X, y, X_num=None):
+    """model: a RATModel (default variant); X_num as in its forward.
+    Returns {"y_pred", "y_true"} equal to ``model(X, y, X_num)`` within
+    float tolerance when the model has no dropout and no BatchNorm in
+    training (the kernel has neither; the Trainer's gate sends such
+    models through the module path)."""
     if model.variant != "default":
         raise ValueError("the fused path runs RAT_m2 only")
-    feature_emb, grid = model.grid(X, y)
+    feature_emb, grid = model.grid(X, y, X_num)
     grid = grid.contiguous()
     project_out = not (model.num_heads == 1 and model.dim_head == model.embedding_dim)
     for block in model.encoder.blocks:
         grid = cross_intra_block(grid, _block_params(block), model.num_heads,
                                  model.dim_head, project_out=project_out)
     cls = grid[:, 0, 0]
-    return {"y_pred": model.head(cls, feature_emb, X), "y_true": y[:, 0:1]}
+    return {"y_pred": model.head(cls, feature_emb, X, X_num), "y_true": y[:, 0:1]}

@@ -10,12 +10,23 @@ pooled. Semantics, as in the JAX package:
 - padding ids embed to exact zeros (the gathered vectors are masked
   with ``id != padding_idx``);
 - sequence encoders MaskedAveragePooling / MaskedSumPooling, the
-  average over the non-padding tokens.
+  average over the non-padding tokens;
+- a numeric field embeds as ``value * w`` with one Xavier-normal
+  d-vector ``w`` per field (``numeric_weights`` [n_num, d]);
+- pretrained rows (``pretrained_emb``, an h5 file under the feature
+  map's ``data_dir`` holding one dataset per field) are loaded into the
+  packed table at construction; a frozen field (``freeze_emb``, the
+  default) has its gathered vectors detached, while the table stays a
+  parameter, so the embedding regularizer still moves those rows;
+- a pretrained field whose width differs from the model's gets its own
+  side table ``side_{name}`` and a bias-free projection
+  ``hook_{name}`` to the model's width.
 
-Not ported yet: numeric fields and pretrained (or side) tables; a
-feature map that has them raises at construction.
+Every parameter lives under the module, so its name holds
+"embedding_layer", the key of the embedding regularizer.
 """
 
+import os
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
@@ -23,7 +34,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .initializers import embedding_init
+from .initializers import embedding_init, xavier_normal
 
 
 @dataclass(frozen=True)
@@ -140,27 +151,64 @@ class EmbeddingSpec:
                              pretrained=pretrained)
 
 
-class PackedEmbedding(nn.Module):
-    """X [..., input_length] -> feature embeddings [..., F, d]."""
+def load_pretrained(data_dir, fname, name):
+    """The float32 rows of dataset ``name`` in the h5 file ``fname``
+    under ``data_dir``. h5py is imported here, not with the module: the
+    GPU machine has none, and only feature maps with pretrained fields
+    need it."""
+    import h5py
+    with h5py.File(os.path.join(data_dir or ".", fname), "r") as hf:
+        return torch.from_numpy(np.asarray(hf[name][:], dtype=np.float32))
 
-    def __init__(self, spec, embedding_dim, generator=None, init_std=1.e-4):
+
+def _pool(vecs, mask, encoder):
+    """Pool a sequence field's [..., max_len, d] vectors; ``mask``
+    [..., max_len] marks its non-padding tokens."""
+    if encoder in (None, "none", "null"):
+        return vecs
+    if encoder == "MaskedSumPooling":
+        return vecs.sum(dim=-2)
+    if encoder == "MaskedAveragePooling":
+        cnt = mask.sum(dim=-1, keepdim=True).to(vecs.dtype)
+        return vecs.sum(dim=-2) / (cnt + 1e-16)
+    raise RuntimeError("sequence encoder={} is not supported.".format(encoder))
+
+
+class PackedEmbedding(nn.Module):
+    """X [..., input_length] (and, with numeric fields, X_numeric, the
+    same columns as float values) -> feature embeddings [..., F, d]."""
+
+    def __init__(self, spec, embedding_dim, generator=None, init_std=1.e-4,
+                 data_dir=None):
         super().__init__()
-        if spec.numeric_cols.size or spec.pretrained:
-            raise NotImplementedError(
-                "numeric fields and pretrained tables are not ported yet "
-                "(ROADMAP.md, Queue 1 item 2)")
         self.spec = spec
         table = embedding_init(generator, (spec.total_rows, embedding_dim),
                                std=init_std)
         pad_rows = spec.token_offsets + spec.token_padding
         pad_rows = np.unique(pad_rows[spec.token_padding >= 0])
         table[torch.from_numpy(pad_rows)] = 0.0
+        for name, info in spec.pretrained.items():
+            if not info["side"]:
+                table[info["offset"]: info["offset"] + info["rows"]] = \
+                    load_pretrained(data_dir, info["file"], name)
         self.table = nn.Parameter(table)
+        if spec.numeric_cols.size:
+            self.numeric_weights = nn.Parameter(
+                xavier_normal(generator, (len(spec.numeric_cols), embedding_dim)))
+        for f in spec.fields:
+            if f.hook:
+                self.register_parameter("side_" + f.name, nn.Parameter(
+                    load_pretrained(data_dir, spec.pretrained[f.name]["file"], f.name)))
+                hook = nn.Linear(f.table_dim, embedding_dim, bias=False)
+                with torch.no_grad():
+                    hook.weight.copy_(xavier_normal(generator,
+                                                    (embedding_dim, f.table_dim)))
+                self.add_module("hook_" + f.name, hook)
         for name in ("token_cols", "token_offsets", "token_padding"):
             self.register_buffer(name, torch.from_numpy(getattr(spec, name)),
                                  persistent=False)
 
-    def forward(self, X):
+    def forward(self, X, X_numeric=None):
         ids_local = X[..., self.token_cols]                             # [..., T]
         emb = self.table[ids_local + self.token_offsets]                # [..., T, d]
         pad = self.token_padding
@@ -168,20 +216,30 @@ class PackedEmbedding(nn.Module):
         emb = emb * mask[..., None].to(emb.dtype)
         outputs = []
         for f in self.spec.fields:
-            vecs = emb[..., f.token_slots[0]: f.token_slots[-1] + 1, :]
-            if f.kind == "token":
-                outputs.append(vecs[..., 0, :])
-            elif f.encoder in (None, "none", "null"):
-                outputs.append(vecs)
-            elif f.encoder == "MaskedSumPooling":
-                outputs.append(vecs.sum(dim=-2))
-            elif f.encoder == "MaskedAveragePooling":
-                m = mask[..., f.token_slots[0]: f.token_slots[-1] + 1]
-                cnt = m.sum(dim=-1, keepdim=True).to(emb.dtype)
-                outputs.append(vecs.sum(dim=-2) / (cnt + 1e-16))
-            else:
-                raise RuntimeError("sequence encoder={} is not supported."
-                                   .format(f.encoder))
+            if f.kind == "numeric":
+                pos = int(np.flatnonzero(self.spec.numeric_cols == f.x_cols[0])[0])
+                outputs.append(X_numeric[..., f.x_cols[0], None]
+                               * self.numeric_weights[pos])
+                continue
+            if f.hook:
+                ids = X[..., f.x_cols[0]] if f.kind == "side_token" \
+                    else X[..., list(f.x_cols)]
+                vecs = getattr(self, "side_" + f.name)[ids]
+                keep = ids != f.padding_idx
+                if f.padding_idx >= 0:
+                    vecs = vecs * keep[..., None].to(vecs.dtype)
+                if f.frozen:
+                    vecs = vecs.detach()
+                if f.kind == "side_seq":
+                    vecs = _pool(vecs, keep, f.encoder)
+                outputs.append(getattr(self, "hook_" + f.name)(vecs))
+                continue
+            span = slice(f.token_slots[0], f.token_slots[-1] + 1)
+            vecs = emb[..., span, :]
+            if f.frozen:
+                vecs = vecs.detach()
+            outputs.append(vecs[..., 0, :] if f.kind == "token"
+                           else _pool(vecs, mask[..., span], f.encoder))
         return torch.stack(outputs, dim=-2)
 
 

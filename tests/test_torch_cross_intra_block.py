@@ -4,9 +4,9 @@ through the port's ``torch.autograd.Function``, backward against
 ``jax.vjp``.
 
 Same float32 inputs from a seeded numpy RNG go through both; the port's
-weights are the JAX ones transposed to nn.Linear layout. Tolerance
-rtol 1e-5 / atol 1e-6: the two differ only in the order of float32
-sums (tests/test_pallas.py holds the flax block to the same)."""
+weights are the JAX ones transposed to nn.Linear layout. The two differ
+only in the order of float32 sums; the forward's tolerance is stated in
+its test."""
 
 import jax
 import jax.numpy as jnp
@@ -61,6 +61,13 @@ SHAPES = {
 
 @pytest.mark.parametrize("name", sorted(SHAPES))
 def test_plain_block_matches_jax_reference(name):
+    """Forward within rtol 1e-5 / atol 1e-5. XLA's CPU matmuls and
+    torch's sum float32 products in another order, and the gap depends
+    on the machine's kernels: at the KKBox shape (d=40, an FF of 160)
+    3 of the 13,440 outputs, all near 3e-3, differ by up to 1.3e-6
+    (relative 4.3e-4), so an atol of 1e-6 failed on some machines and not on
+    others. 1e-5 is the tolerance the JAX package holds its own kernel
+    to (tests/test_pallas.py) and the card holds K1 to."""
     B, t, s, d, heads, dim_head = SHAPES[name]
     project_out = not (heads == 1 and dim_head == d)
     rng = np.random.RandomState(7)
@@ -74,7 +81,7 @@ def test_plain_block_matches_jax_reference(name):
                                heads, dim_head, project_out=project_out)
     assert k1.launches == before, "a CPU call must not count as a launch"
     assert got.shape == x.shape and got.is_contiguous()
-    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
 def test_cpu_wrapper_is_the_plain_version():
