@@ -63,6 +63,21 @@ Phases, any failure exits non-zero:
              one step on the card against the same step on the CPU,
              one epoch of Trainer.fit, the reload, steady ms per step
              and a short profile (device time per step, idle share).
+10. cli    — the published ML-Tag experiment run as a user runs it,
+             ``python -m rat_tpu_torch.cli.run_expid --config ... --expid
+             RAT_m2_movielenslatest_x1_10fold_retrieval --gpu 0``, in a
+             subprocess, on CSVs of MovielensLatest_x1's split sizes
+             (1,404,801 / 401,372 / 200,686 rows, ids over ML-Tag's
+             vocabularies) written by the port's make_mltag_like, with a
+             copy of configs/RAT_m2/movielenslatest_x1 that changes only
+             the paths, ``epochs: 2`` and adds ``use_pallas: true``:
+             dataset build from the CSVs, 10-fold retrieval (K2), two
+             epochs (K1), reload, valid and test, the results line. The
+             launch counts are asserted; a second run must build
+             nothing, retrieve nothing (K2 = 0) and give the same
+             metrics exactly; the fitted vocabularies must be ML-Tag's
+             and the train split's cached neighbours of 512 queries
+             equal to the plain scan's.
 
 The line before the last is the kernel table as JSON; the last line
 says the run was ok, and names the device. Without CUDA the script
@@ -78,11 +93,13 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
 
-from rat_tpu_torch.data.loader import DataGenerator
+from rat_tpu_torch.data.loader import DataGenerator, retrieval_cache_path
+from rat_tpu_torch.data.synthetic import make_mltag_like
 from rat_tpu_torch.engine import Trainer
 from rat_tpu_torch.engine.trainer import _gather_batch
 from rat_tpu_torch.features import FeatureMap
@@ -123,6 +140,15 @@ MLTAG_RETRIEVAL = {
 MLTAG_VOCAB = {"user_id": 16_973, "item_id": 23_745, "tag_id": 49_659}
 MLTAG_POOL_ROWS = 1_404_801
 MLTAG_TEST_ROWS = 200_686
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+# the cli phase: the published ML-Tag experiment run through the port's
+# CLI from CSV (configs/RAT_m2/movielenslatest_x1), on CSVs of
+# MovielensLatest_x1's split sizes whose ids span ML-Tag's vocabularies
+MLTAG_CONFIG = os.path.join(REPO, "configs", "RAT_m2", "movielenslatest_x1")
+MLTAG_EXPID = "RAT_m2_movielenslatest_x1_10fold_retrieval"
+MLTAG_SPLIT_ROWS = (1_404_801, 401_372, 200_686)
+MLTAG_IDS = {"n_users": 16_972, "n_items": 23_744, "n_tags": 49_658}
 
 # RAT_m2_kkbox_x1_10fold_retrieval at its published widths and training
 # settings (configs/RAT_m2/kkbox_x1/model_config.yaml), plus the fused
@@ -314,10 +340,14 @@ def _cuda_ms(fn, reps, warmup=1):
 
 
 def _kernel_ms(fn, reps, key):
-    """Device time of one call of a kernel's wrapper: the time of the
-    kernels whose name holds ``key``, summed by torch.profiler over
-    ``reps`` calls, over ``reps``. Unlike CUDA events around the calls,
-    it leaves out the gaps while the host prepares each launch."""
+    """Device time of one call of a kernel's wrapper: for each kernel
+    whose name holds ``key``, its mean time per launch that
+    torch.profiler recorded over ``reps`` calls, times its launches per
+    call, summed. Unlike CUDA events around the calls, it leaves out the
+    gaps while the host prepares each launch. A total over ``reps``
+    reads a launch the profiler did not record as a faster kernel (one
+    run put K3 below its bound that way); the mean per recorded launch
+    does not."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -325,8 +355,11 @@ def _kernel_ms(fn, reps, key):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in _device_events(prof.key_averages())
-               if key in e.key) / 1e3 / reps
+    events = [e for e in _device_events(prof.key_averages()) if key in e.key]
+    if not events:
+        raise AssertionError("no kernel named like {!r} in the profile".format(key))
+    return sum(e.self_device_time_total / e.count * max(1, round(e.count / reps))
+               for e in events) / 1e3
 
 
 def _bound(ops, nbytes):
@@ -1080,6 +1113,171 @@ def variants(device, seed, train_gen, valid_gen, batch_size, model_root):
     return out
 
 
+def _set_key(text, key, value, then=None):
+    """``text`` with the one ``key: ...`` line set to ``value`` (and,
+    with ``then``, the line ``then`` added after it at its indent)."""
+    pattern = re.compile(r"^( +){}:.*$".format(re.escape(key)), re.M)
+    if len(pattern.findall(text)) != 1:
+        raise AssertionError("cli: config key {} is not there once".format(key))
+
+    def line(m):
+        out = "{}{}: {}".format(m.group(1), key, value)
+        return out if then is None else out + "\n" + m.group(1) + then
+    return pattern.sub(line, text)
+
+
+def write_cli_config(out_dir, data_root, model_root, csv_dir, epochs):
+    """A copy of the ML-Tag config in ``out_dir`` that differs only in
+    where data, models and the three CSVs live, in ``epochs``, and in the
+    added ``use_pallas: true``; every width and setting stays."""
+    os.makedirs(out_dir, exist_ok=True)
+
+    def quoted(path):
+        return "'{}'".format(path.replace("'", "''"))
+
+    with open(os.path.join(MLTAG_CONFIG, "dataset_config.yaml")) as fh:
+        text = _set_key(fh.read(), "data_root", quoted(data_root + "/"))
+    for split in ("train", "valid", "test"):
+        text = _set_key(text, split + "_data",
+                        quoted(os.path.join(csv_dir, split + ".csv")))
+    with open(os.path.join(out_dir, "dataset_config.yaml"), "w") as fh:
+        fh.write(text)
+    with open(os.path.join(MLTAG_CONFIG, "model_config.yaml")) as fh:
+        text = _set_key(fh.read(), "model_root", quoted(model_root + "/"))
+    text = _set_key(text, "epochs", epochs, then="use_pallas: true")
+    with open(os.path.join(out_dir, "model_config.yaml"), "w") as fh:
+        fh.write(text)
+
+
+def _run_cli(config_dir, gpu, timeout):
+    """Run the port's CLI as a user does, in a subprocess; returns (its
+    stage seconds, its kernel launches, its log, the command's
+    seconds)."""
+    cmd = [sys.executable, "-m", "rat_tpu_torch.cli.run_expid", "--config", config_dir,
+           "--expid", MLTAG_EXPID, "--gpu", str(gpu)]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    if gpu < 0:
+        # one thread: torch's multithreaded CPU reductions may sum in
+        # another order from run to run, and the rerun must be exact
+        env["OMP_NUM_THREADS"] = "1"
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=timeout)
+    seconds = time.perf_counter() - t0
+    log = out.stdout + out.stderr
+    if out.returncode != 0:
+        raise AssertionError("cli: {} exited {}:\n{}".format(" ".join(cmd), out.returncode,
+                                                             log[-4000:]))
+    found = {}
+    for key in ("Stage seconds: ", "Kernel launches: "):
+        lines = [line for line in log.splitlines() if key in line]
+        if len(lines) != 1:
+            raise AssertionError("cli: no single {!r} line in the log".format(key))
+        found[key] = json.loads(lines[0].split(key, 1)[1])
+    return found["Stage seconds: "], found["Kernel launches: "], log, seconds
+
+
+def _results_metrics(line):
+    """{"val": ..., "test": ...} metric fields of a results line."""
+    m = re.search(r",\[val\] (.*),\[test\] (.*)$", line.strip())
+    if m is None:
+        raise AssertionError("cli: bad results line: " + line)
+    return {"val": m.group(1), "test": m.group(2)}
+
+
+def cli(device, seed, work_dir, rows=MLTAG_SPLIT_ROWS, ids=MLTAG_IDS, epochs=2,
+        timeout=600):
+    """The published ML-Tag experiment as a user runs it: ML-Tag-sized
+    CSVs written by the port's make_mltag_like, a copy of the config
+    (paths, ``epochs``, ``use_pallas: true``), then ``python -m
+    rat_tpu_torch.cli.run_expid`` twice as a subprocess. The first run
+    builds the dataset from the CSVs, retrieves the train split's
+    neighbours fold by fold and the valid and test splits' against it
+    (K2), trains (K1 in every step and evaluation), reloads the best
+    weights, evaluates valid and test and writes the results line. The
+    second must build nothing, retrieve nothing (K2 = 0, caches read)
+    and give the same metrics exactly. Checks: the launch counts, the
+    vocabularies, the train split's cached neighbours of 512 queries
+    against the plain scan, AUC above 0.5. Returns a dict of results."""
+    cuda = torch.device(device).type == "cuda"
+    gpu = (torch.device(device).index or 0) if cuda else -1
+    csv_dir = os.path.join(work_dir, "csv")
+    data_root, model_root = os.path.join(work_dir, "data"), os.path.join(work_dir, "exps")
+    config_dir = os.path.join(work_dir, "config")
+    n_train, n_valid, n_test = rows
+    t0 = time.perf_counter()
+    make_mltag_like(csv_dir, n_train=n_train, n_valid=n_valid, n_test=n_test,
+                    seed=seed, **ids)
+    csv_s = time.perf_counter() - t0
+    write_cli_config(config_dir, data_root, model_root, csv_dir, epochs)
+
+    runs = [_run_cli(config_dir, gpu, timeout) for _ in range(2)]
+    (stages, launches, log, seconds), (stages2, launches2, log2, seconds2) = runs
+    dataset_id = MLTAG_EXPID.replace("RAT_m2_", "")
+    data_dir = os.path.join(data_root, dataset_id)
+    if "build" not in stages or "build" in stages2 or "Fit feature encoder" in log2:
+        raise AssertionError("cli: the first run must build the dataset, the second not")
+    if "fold retrieval: process" not in log or "fold retrieval: process" in log2:
+        raise AssertionError("cli: the first run must retrieve, the second read caches")
+    with open(os.path.join(model_root, dataset_id, MLTAG_EXPID + ".csv")) as fh:
+        lines = fh.read().splitlines()
+    if len(lines) != 2:
+        raise AssertionError("cli: {} results lines, expected 2".format(len(lines)))
+    metrics = [_results_metrics(line) for line in lines]
+    if metrics[0] != metrics[1]:
+        raise AssertionError("cli: the rerun gave other metrics: {}".format(metrics))
+    auc = float(re.search(r"AUC: ([0-9.]+)", metrics[0]["val"]).group(1))
+    if not auc > 0.5:
+        raise AssertionError("cli: valid AUC {} is not above 0.5".format(auc))
+
+    with open(os.path.join(data_dir, "feature_map.json")) as fh:
+        specs = json.load(fh)["feature_specs"]
+    vocab = {name: spec["vocab_size"] for name, spec in specs.items()}
+    if ids == MLTAG_IDS and vocab != MLTAG_VOCAB:
+        raise AssertionError("cli: vocabularies {} against ML-Tag's {}".format(
+            vocab, MLTAG_VOCAB))
+    # fold 0's queries retrieve from the rows after the first fold
+    train = np.load(os.path.join(data_dir, "train.npy"))
+    retrieval = MLTAG_RETRIEVAL
+    cached = np.load(retrieval_cache_path(os.path.join(data_dir, "train.npy"),
+                                          retrieval["topK"]))
+    folds = int(retrieval["split_type"].split("-")[0])
+    fold_size = -(-len(train) // folds)
+    shifted = types.SimpleNamespace(
+        retr_indices=np.where(cached["indices"] >= 0, cached["indices"] - fold_size, -1),
+        retr_values=cached["values"], retr_lens=cached["lens"])
+    n_chk = check_neighbours(shifted, train[fold_size:], train[:fold_size], retrieval,
+                             device, "cli")
+
+    batch = MLTAG_PARAMS["batch_size"]
+    steps, valid_batches, test_batches = (-(-n // batch) for n in rows)
+    n_epochs = len(stages["epochs"])
+    fold_rows = [len(train[i * fold_size:(i + 1) * fold_size]) for i in range(folds)]
+    k2_first = sum(_k2_batches(r, retrieval) for r in fold_rows) \
+        + _k2_batches(n_valid, retrieval) + _k2_batches(n_test, retrieval)
+    k1_run = MLTAG_PARAMS["depth"] * (n_epochs * (steps + valid_batches)
+                                      + valid_batches + test_batches)
+    expected = [{"cross_intra_block": k1_run if cuda else 0,
+                 "bm25_topk": k2_first if cuda else 0, "bm25_score_chunk": 0},
+                {"cross_intra_block": k1_run if cuda else 0, "bm25_topk": 0,
+                 "bm25_score_chunk": 0}]
+    if [launches, launches2] != expected or len(stages2["epochs"]) != n_epochs:
+        raise AssertionError("cli: launches {} against the expected {}".format(
+            [launches, launches2], expected))
+    return {"rows": list(rows), "vocab": vocab, "epochs": n_epochs,
+            "csv_write_s": csv_s, "build_s": stages["build"],
+            "train_retrieval_s": stages["train_retrieval"],
+            "valid_retrieval_s": stages["valid_retrieval"],
+            "test_retrieval_s": stages["test_retrieval"],
+            "epoch_s": stages["epochs"], "valid_evaluation_s": stages["valid_evaluation"],
+            "test_evaluation_s": stages["test_evaluation"], "command_s": seconds,
+            "rerun": {"train_retrieval_s": stages2["train_retrieval"],
+                      "epoch_s": stages2["epochs"], "command_s": seconds2},
+            "results_line": lines[0], "neighbours_checked": n_chk,
+            "launches": launches, "rerun_launches": launches2}
+
+
 def _ptxas_report(name):
     """{kernel (mangled): (registers, bytes of spill stores)} from
     ptxas's report of csrc/<name>.cu."""
@@ -1212,10 +1410,21 @@ def main(argv=None):
                        model_root)
         variant_launches = {k: sum(r["launches"][k] for r in res.values())
                             for k in ("cross_intra_block", "bm25_topk")}
+    del trainer, train_gen
+    torch.cuda.empty_cache()
     if k3.launches != k3_checks:
         raise AssertionError("K3 was launched on a path")
+
+    with tempfile.TemporaryDirectory() as work_dir:
+        res = cli(device, args.seed, work_dir)
+    cli_launches = res.pop("launches")
+    print("cli: " + json.dumps(res))
+    print("cli launches (asserted: K1 = depth x (epochs x (train steps + valid batches) + "
+          "valid batches + test batches), K2 = query batches of the 10 folds + the valid "
+          "and test splits, K3 = 0; the rerun K2 = 0): " + json.dumps(cli_launches))
     by_path = {"serve": serve_launches, "train": train_launches,
-               "kkbox_train": kkbox_launches, "variants": variant_launches}
+               "kkbox_train": kkbox_launches, "variants": variant_launches,
+               "cli": cli_launches}
     for entry in kernels:
         counts = {path: launches.get(entry["name"], 0)
                   for path, launches in by_path.items()}

@@ -1,28 +1,63 @@
-"""HDF5 artifact IO (port of rat_tpu.data.io). h5py is imported inside
-each function, so the scoring path imports without it."""
+"""Artifact IO (port of rat_tpu.data.io).
+
+The port writes its encoded splits as ``.npy`` and their retrieval
+caches as ``.npz``, with numpy alone; ``.h5`` files (the JAX package's
+splits and caches, pretrained tables) are read and written through
+h5py, imported inside the functions that touch them. Every write goes
+to a temporary sibling first and is renamed into place, so a crash
+never leaves a partial artifact that a later existence check would
+trust.
+"""
 
 import logging
 import os
 
+import numpy as np
 
-def save_hdf5_atomic(datasets, data_path):
-    """Write several datasets (a dict of key -> array) as ONE h5 file,
-    atomically: written to a temporary sibling and renamed into place,
-    so a crash never leaves a partial cache behind."""
-    import h5py
-    logging.info("Saving data to h5: %s", data_path)
+
+def _atomic_write(data_path, write):
     parent = os.path.dirname(data_path)
     if parent:
         os.makedirs(parent, exist_ok=True)
     tmp_path = data_path + ".tmp.%d" % os.getpid()
     try:
-        with h5py.File(tmp_path, "w") as hf:
-            for key, arr in datasets.items():
-                hf.create_dataset(key, data=arr)
-        os.rename(tmp_path, data_path)
+        write(tmp_path)
+        os.replace(tmp_path, data_path)
     finally:
         if os.path.exists(tmp_path):
             os.remove(tmp_path)
+
+
+def save_npy_atomic(array, data_path):
+    logging.info("Saving data to npy: %s", data_path)
+
+    def write(tmp):
+        with open(tmp, "wb") as fh:   # a file object: np.save adds no suffix
+            np.save(fh, array)
+    _atomic_write(data_path, write)
+
+
+def save_npz_atomic(arrays, data_path):
+    """Several arrays (a dict of key -> array) as ONE .npz file."""
+    logging.info("Saving data to npz: %s", data_path)
+
+    def write(tmp):
+        with open(tmp, "wb") as fh:   # a file object: no second ".npz"
+            np.savez(fh, **arrays)
+    _atomic_write(data_path, write)
+
+
+def save_hdf5_atomic(datasets, data_path):
+    """Write several datasets (a dict of key -> array) as ONE h5 file,
+    atomically."""
+    import h5py
+    logging.info("Saving data to h5: %s", data_path)
+
+    def write(tmp):
+        with h5py.File(tmp, "w") as hf:
+            for key, arr in datasets.items():
+                hf.create_dataset(key, data=arr)
+    _atomic_write(data_path, write)
 
 
 def load_hdf5(data_path, key=None, verbose=True):
@@ -35,3 +70,17 @@ def load_hdf5(data_path, key=None, verbose=True):
         else:
             data_array = hf[list(hf.keys())[0]][()]
     return data_array
+
+
+def load_array(data_path, key=None):
+    """One array by the file's suffix: ``.npy``, ``.npz`` (array ``key``)
+    or ``.h5`` (dataset ``key``, or its first)."""
+    if data_path.endswith(".h5"):
+        return load_hdf5(data_path, key)
+    logging.info("Loading data from: " + data_path)
+    if data_path.endswith(".npy"):
+        return np.load(data_path)
+    if data_path.endswith(".npz"):
+        with np.load(data_path) as npz:
+            return npz[key]
+    raise ValueError("unknown array file type: {}".format(data_path))

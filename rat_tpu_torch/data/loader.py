@@ -9,28 +9,155 @@ Retrieval precompute keeps the reference's semantics:
   against the first train block under X-fold);
 - label_wise: separate pos-pool and neg-pool retrievals concatenated to
   2K neighbors;
-- results cached to ``retrieval_{topK}_<fname>.h5`` with keys
-  indices/values/lens (the JAX package's artifact format).
+- results cached next to the split with keys indices/values/lens: an
+  ``.npy`` split (the port's build) to ``retrieval_{topK}_<stem>.npz``,
+  an ``.h5`` split to the JAX package's ``retrieval_{topK}_<name>.h5``,
+  so the two packages share caches on ``.h5`` data;
+- a long scan runs in checkpointed slices of ``resume_slice_rows``
+  queries (retrieval configs; default 2,000,000) through a
+  _PartialRetrievalStore, so a killed precompute resumes from its last
+  completed slice.
 
-Not ported yet: the mesh-sharded scan, the resumable partial store and
-block streaming (DataBlockGenerator).
+Not ported yet: the mesh-sharded scan and block streaming
+(DataBlockGenerator).
 """
 
 import glob
+import json
 import logging
 import os
 import re
+import shutil
+import time
 
 import numpy as np
 
-from ..retrieval.bm25 import bm25_topk_retrieval
-from .io import load_hdf5, save_hdf5_atomic
+from ..retrieval.bm25 import RetrievalResults, _compute_idf_tables, bm25_topk_retrieval
+from .io import load_array, save_hdf5_atomic, save_npz_atomic
+
+# queries per checkpointed slice of a resumable precompute: a crash
+# costs one slice, not the whole split's scan
+_RESUME_SLICE_ROWS = 2_000_000
+
+# the loader's own knobs, not engine kwargs
+_LOADER_KEYS = ("resume_base", "resume_slice_rows")
+
+_RETRIEVED = ("indices", "values", "lens")
 
 
-def _retrieve(db_np_data, qry_np_data, retrieval_configs, device=None):
-    """Single-device engine dispatch."""
-    return bm25_topk_retrieval(db_np_data=db_np_data, qry_np_data=qry_np_data,
-                               device=device, **retrieval_configs)
+class _PartialRetrievalStore:
+    """Crash-resumable store for a long retrieval precompute: a directory
+    ``<cache>.<tag>.partial/`` holding ``indices.npy``, ``values.npy``
+    and ``lens.npy`` as preallocated memmaps, and ``cursor.json`` with
+    ``{fingerprint, done_rows}``. A slice's arrays are flushed BEFORE
+    the cursor is rewritten (atomically), so a crash at any point costs
+    at most the in-flight slice (the cursor then understates and that
+    slice is scanned again). A cursor with another fingerprint (another
+    query count, pool size, topK or column count) is discarded."""
+
+    def __init__(self, path, n_rows, topk, fingerprint):
+        self.path = path
+        self.fingerprint = fingerprint
+        cursor = os.path.join(path, "cursor.json")
+        stored = None
+        if os.path.exists(cursor):
+            with open(cursor) as fh:
+                stored = json.load(fh)
+        if os.path.isdir(path) and (stored is None
+                                    or stored["fingerprint"] != fingerprint):
+            logging.info("Discarding stale retrieval partial %s", path)
+            shutil.rmtree(path)
+            stored = None
+        shapes = {"indices": ((n_rows, topk), np.int64),
+                  "values": ((n_rows, topk), np.float64),
+                  "lens": ((n_rows,), np.int64)}
+        if stored is None:
+            os.makedirs(path)
+            self.arrays = {k: np.lib.format.open_memmap(
+                os.path.join(path, k + ".npy"), mode="w+", dtype=dt, shape=shape)
+                for k, (shape, dt) in shapes.items()}
+            self.arrays["indices"][:] = -1
+            self._write_cursor(0)
+        else:
+            self.arrays = {k: np.lib.format.open_memmap(
+                os.path.join(path, k + ".npy"), mode="r+") for k in shapes}
+        self.done_rows = 0 if stored is None else int(stored["done_rows"])
+
+    def _write_cursor(self, done_rows):
+        for arr in self.arrays.values():
+            arr.flush()                  # data durable before the cursor
+        tmp = os.path.join(self.path, "cursor.json.tmp")
+        with open(tmp, "w") as fh:
+            json.dump({"fingerprint": self.fingerprint, "done_rows": done_rows}, fh)
+        os.replace(tmp, os.path.join(self.path, "cursor.json"))
+
+    def append(self, lo, res):
+        hi = lo + len(res.lens)
+        self.arrays["indices"][lo:hi] = res.indices
+        self.arrays["values"][lo:hi] = res.values
+        self.arrays["lens"][lo:hi] = res.lens
+        self._write_cursor(hi)
+        self.done_rows = hi
+
+    def results(self):
+        return RetrievalResults(np.array(self.arrays["values"]),
+                                np.array(self.arrays["indices"]),
+                                np.array(self.arrays["lens"]))
+
+
+def _cleanup_partials(resume_base):
+    for p in glob.glob(glob.escape(resume_base) + ".*.partial"):
+        shutil.rmtree(p)
+
+
+def _retrieve(db_np_data, qry_np_data, retrieval_configs, resume_tag=None,
+              device=None):
+    """Single-device engine dispatch.
+
+    With ``resume_tag`` and a ``resume_base`` path in the configs, query
+    sets larger than ``resume_slice_rows`` run as checkpointed slices
+    through a _PartialRetrievalStore: a scan killed mid-way resumes from
+    its last completed slice instead of from zero. The pool's IDF tables
+    are computed once and reused across slices."""
+    rc = retrieval_configs
+    engine_kwargs = {k: v for k, v in rc.items() if k not in _LOADER_KEYS}
+
+    def run(qry, **extra):
+        return bm25_topk_retrieval(db_np_data=db_np_data, qry_np_data=qry,
+                                   device=device, **engine_kwargs, **extra)
+
+    Q = len(qry_np_data)
+    resume_base = rc.get("resume_base")
+    slice_rows = int(rc.get("resume_slice_rows", _RESUME_SLICE_ROWS))
+    if resume_base is None or resume_tag is None or Q <= slice_rows:
+        return run(qry_np_data)
+
+    topk = engine_kwargs.get("topK", 10)
+    ncols = qry_np_data.shape[1] if qry_np_data.ndim > 1 else 0
+    # slice_rows is deliberately NOT part of the fingerprint: done_rows
+    # is a row cursor, so a partial written under one slice size resumes
+    # correctly under any other
+    fingerprint = "{}:{}:{}:{}".format(Q, len(db_np_data), topk, ncols)
+    store = _PartialRetrievalStore("{}.{}.partial".format(resume_base, resume_tag),
+                                   Q, topk, fingerprint)
+    if store.done_rows:
+        logging.info("Resuming retrieval '%s' at %d/%d queries",
+                     resume_tag, store.done_rows, Q)
+    extra = {}
+    if not engine_kwargs.get("exact_match_col_indices") \
+            and engine_kwargs.get("idf_tables") is None:
+        # pool statistics are slice-invariant: one pass here instead of
+        # one per slice
+        weighting = engine_kwargs.get("idf_weighting") or (
+            "robertson" if engine_kwargs.get("generation", 4) == 1 else "lucene")
+        extra["idf_tables"] = _compute_idf_tables(
+            np.ascontiguousarray(db_np_data, dtype=np.int64), weighting)
+    for lo in range(store.done_rows, Q, slice_rows):
+        hi = min(lo + slice_rows, Q)
+        store.append(lo, run(qry_np_data[lo:hi], **extra))
+    # the partial survives until the caller's final cache write, so a
+    # crash in between still resumes for free
+    return store.results()
 
 
 def _fold_self_retrieval(data_array, retrieval_configs, device=None):
@@ -58,10 +185,11 @@ def _fold_self_retrieval(data_array, retrieval_configs, device=None):
                 [retrieval_db_labels[: fi * fold_size],
                  retrieval_db_labels[(fi + 1) * fold_size:]], axis=0)
             parts_i, parts_v, parts_l = [], [], []
-            for sub_indices in (np.nonzero(fold_db_labels)[0],
-                                np.nonzero(1 - fold_db_labels)[0]):
+            for sub, sub_indices in (("pos", np.nonzero(fold_db_labels)[0]),
+                                     ("neg", np.nonzero(1 - fold_db_labels)[0])):
                 res = _retrieve(fold_db_data[sub_indices], fold_qry_data,
-                                retrieval_configs, device)
+                                retrieval_configs,
+                                resume_tag="fold{}.{}".format(fi, sub), device=device)
                 parts_i.append(fold_db_indices[sub_indices[res.indices]])
                 parts_v.append(res.values)
                 parts_l.append(res.lens)
@@ -69,7 +197,8 @@ def _fold_self_retrieval(data_array, retrieval_configs, device=None):
             retrieved_values.append(np.concatenate(parts_v, axis=-1))   # Bx(2K)
             retrieved_lens.append(np.stack(parts_l, axis=-1))           # Bx2
         else:
-            res = _retrieve(fold_db_data, fold_qry_data, retrieval_configs, device)
+            res = _retrieve(fold_db_data, fold_qry_data, retrieval_configs,
+                            resume_tag="fold{}".format(fi), device=device)
             retrieved_indices.append(fold_db_indices[res.indices])
             retrieved_values.append(res.values)
             retrieved_lens.append(res.lens)
@@ -86,26 +215,39 @@ def _pool_retrieval(data_array, db_array, retrieval_configs, device=None):
     if retrieval_configs.get("label_wise", False):
         db_labels = db_array[:, -1].astype(int)
         parts_i, parts_v, parts_l = [], [], []
-        for sub_indices in (np.nonzero(db_labels)[0], np.nonzero(1 - db_labels)[0]):
+        for sub, sub_indices in (("pos", np.nonzero(db_labels)[0]),
+                                 ("neg", np.nonzero(1 - db_labels)[0])):
             res = _retrieve(db_data[sub_indices], qry_data, retrieval_configs,
-                            device)
+                            resume_tag="pool." + sub, device=device)
             parts_i.append(sub_indices[res.indices])
             parts_v.append(res.values)
             parts_l.append(res.lens)
         return (np.concatenate(parts_i, axis=-1),
                 np.concatenate(parts_v, axis=-1),
                 np.stack(parts_l, axis=-1))
-    res = _retrieve(db_data, qry_data, retrieval_configs, device)
+    res = _retrieve(db_data, qry_data, retrieval_configs, resume_tag="pool",
+                    device=device)
     return res.indices, res.values, res.lens
+
+
+def retrieval_cache_path(split_path, topk):
+    """Where a split's retrieval results are cached: beside the split,
+    ``retrieval_{topk}_<stem>.npz`` for a ``.npy`` split and the JAX
+    package's ``retrieval_{topk}_<name>.h5`` for an ``.h5`` split."""
+    data_root, data_fname = os.path.split(split_path)
+    if data_fname.endswith(".npy"):
+        data_fname = data_fname[:-len(".npy")] + ".npz"
+    return os.path.join(data_root, "retrieval_{}_{}".format(topk, data_fname))
 
 
 class DataGenerator(object):
     """One split: data array + (optional) neighbor retrieval.
 
-    Built either from h5 files (``data_path``, with the pool file named
+    Built either from split files (``data_path``: ``.npy`` from the
+    port's build or the JAX package's ``.h5``, with the pool file named
     by ``retrieval_pool_fname``) or from arrays already in memory
     (``data_array`` and, for a pool other than "self", ``pool_array``),
-    which needs no h5py and writes no retrieval cache.
+    which writes no retrieval cache.
 
     The -1 padded neighbor index wraps to the pool's LAST row, as in the
     reference; ``neighbor_gather_indices`` makes that wrap explicit.
@@ -122,7 +264,7 @@ class DataGenerator(object):
                  **kwargs):
         if data_array is None:
             data_paths = data_path if isinstance(data_path, list) else [data_path]
-            arrays = [load_hdf5(p) for p in data_paths]
+            arrays = [load_array(p) for p in data_paths]
             data_array = arrays[0] if len(arrays) == 1 \
                 else np.concatenate(arrays, axis=0)
         else:
@@ -137,8 +279,12 @@ class DataGenerator(object):
         self.retr_indices = None
         self.retr_values = None
         self.retr_lens = None
+        #: seconds spent retrieving the split's neighbours (or reading
+        #: them from the cache)
+        self.retrieval_s = 0.0
 
         if retrieval_configs is not None:
+            t0 = time.perf_counter()
             if not retrieval_configs.get("pre_retrieval", True):
                 raise NotImplementedError(
                     "only the pre-retrieval strategy is implemented")
@@ -146,25 +292,25 @@ class DataGenerator(object):
             if db_array is None and retrieval_pool_fname != "self":
                 logging.info(f"{retrieval_configs['split_type']} retrieval, "
                              f"pool file: {retrieval_pool_fname}")
-                db_array = load_hdf5(retrieval_pool_fname)
-            cache = None
-            if data_paths is not None:
-                data_root, data_fname = os.path.split(data_paths[0])
-                cache = os.path.join(
-                    data_root, f'retrieval_{retrieval_configs["topK"]}_' + data_fname)
+                db_array = load_array(retrieval_pool_fname)
+            cache = None if data_paths is None \
+                else retrieval_cache_path(data_paths[0], retrieval_configs["topK"])
             if cache is not None and os.path.exists(cache):
-                retrieved = tuple(load_hdf5(cache, key)
-                                  for key in ("indices", "values", "lens"))
-            elif db_array is None:
-                retrieved = _fold_self_retrieval(data_array, retrieval_configs,
-                                                 device)
+                retrieved = tuple(load_array(cache, key) for key in _RETRIEVED)
             else:
-                retrieved = _pool_retrieval(data_array, db_array,
-                                            retrieval_configs, device)
-            if cache is not None and not os.path.exists(cache):
-                save_hdf5_atomic(dict(zip(("indices", "values", "lens"), retrieved)),
-                                 cache)
+                # resume_base switches long scans to checkpointed slices
+                # keyed off the final cache path
+                rc = dict(retrieval_configs, resume_base=cache)
+                if db_array is None:
+                    retrieved = _fold_self_retrieval(data_array, rc, device)
+                else:
+                    retrieved = _pool_retrieval(data_array, db_array, rc, device)
+                if cache is not None:
+                    save = save_hdf5_atomic if cache.endswith(".h5") else save_npz_atomic
+                    save(dict(zip(_RETRIEVED, retrieved)), cache)
+                    _cleanup_partials(cache)
             retrieved_indices, retrieved_values, retrieved_lens = retrieved
+            self.retrieval_s = time.perf_counter() - t0
             if retrieval_augmented:
                 self.retrieval_augmented = True
                 self.pool_darray = data_array if db_array is None else db_array

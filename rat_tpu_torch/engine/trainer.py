@@ -27,8 +27,10 @@ same batches. Step losses and predictions stay on the device until the
 epoch or the split is done, then come back in one copy.
 
 The JAX package's grouped ``lax.scan`` train dispatch is a way to cut
-JAX dispatch cost; here a plain loop takes its place. Not ported yet:
-block streaming, the mesh, and profiling hooks.
+JAX dispatch cost; here a plain loop takes its place. The full train
+state (``save_train_state``/``restore_train_state``, engine/checkpoint.py)
+resumes a run exactly. Not ported yet: block streaming, the mesh, and
+profiling hooks.
 """
 
 import logging
@@ -127,8 +129,11 @@ class Trainer(object):
         # batch order must not depend on code touching np.random
         self._shuffle_rng = np.random.RandomState(params.get("seed", 2021))
         self._optimizer = None
+        self._resumed = None
         #: every train step's loss, in order, filled at each epoch's end
         self.step_losses = []
+        #: each epoch's seconds, its evaluations included
+        self.epoch_seconds = []
 
     @property
     def optimizer(self):
@@ -229,19 +234,24 @@ class Trainer(object):
         self.valid_gen = validation_data
         self._valid_data = self.device_split(validation_data)
         self._train_data = self.device_split(train_gen)
-        self._best_metric = np.inf if self._monitor_mode == "min" else -np.inf
-        self._stopping_steps = 0
-        self._total_batches = 0
+        # a restored train state carries the monitor's bookkeeping on
+        resumed, self._resumed = self._resumed or {}, None
+        self._best_metric = resumed.get(
+            "best_metric", np.inf if self._monitor_mode == "min" else -np.inf)
+        self._stopping_steps = resumed.get("stopping_steps", 0)
+        self._total_batches = resumed.get("total_batches", 0)
         self._batches_per_epoch = len(train_gen)
         self._every_x_batches = int(np.ceil(self._every_x_epochs *
                                             self._batches_per_epoch))
         self._stop_training = False
         self.step_losses = []
+        self.epoch_seconds = []
         logging.info("Start training: {} batches/epoch".format(
             self._batches_per_epoch))
         for epoch in range(epochs):
             logging.info("************ Epoch={} start ************".format(epoch + 1))
             epoch_loss, examples, secs = self.train_one_epoch(train_gen, epoch)
+            self.epoch_seconds.append(secs)
             logging.info("Train loss: {:.6f}".format(epoch_loss))
             logging.info("Train throughput: {:.0f} examples/s".format(
                 examples / max(secs, 1e-9)))
@@ -340,6 +350,46 @@ class Trainer(object):
     def predict(self, data_gen, data=None):
         y_pred, _ = self._eval_collect(data_gen, data)
         return y_pred.astype(np.float64)
+
+    def count_parameters(self, count_embedding=True):
+        total = sum(p.numel() for name, p in self.model.named_parameters()
+                    if count_embedding or "embedding" not in name)
+        logging.info("Total number of parameters: {}.".format(total))
+        return total
+
+    # ---- full-state checkpoint/resume ---------------------------------------
+    def save_train_state(self, path):
+        """Checkpoint the full train state (weights and buffers, Adam's
+        moments, step and learning rate) plus the monitor's bookkeeping
+        and the host and dropout RNG states, for an exact resume."""
+        from .checkpoint import save_train_state
+        mode, bits, pos, has_gauss, gauss = self._shuffle_rng.get_state()
+        extra = {
+            "best_metric": float(getattr(self, "_best_metric", -np.inf)),
+            "stopping_steps": int(getattr(self, "_stopping_steps", 0)),
+            "total_batches": int(getattr(self, "_total_batches", 0)),
+            "shuffle_rng": [mode, bits.tolist(), int(pos), int(has_gauss), float(gauss)],
+            "dropout_rng": self.dropout_generator.get_state().tolist(),
+        }
+        save_train_state(path, self.model.state_dict(), self.optimizer.state_dict(),
+                         extra)
+
+    def restore_train_state(self, path):
+        """Load a state saved by :meth:`save_train_state`; the next
+        ``fit`` continues its bookkeeping instead of starting afresh."""
+        from .checkpoint import restore_train_state
+        state, extra = restore_train_state(path, map_location=self.device)
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        if extra:
+            mode, bits, pos, has_gauss, gauss = extra["shuffle_rng"]
+            self._shuffle_rng.set_state((mode, np.asarray(bits, dtype=np.uint32),
+                                         pos, has_gauss, gauss))
+            self.dropout_generator.set_state(
+                torch.tensor(extra["dropout_rng"], dtype=torch.uint8))
+            self._resumed = {k: extra[k] for k in
+                             ("best_metric", "stopping_steps", "total_batches")}
+        return extra
 
     def save_weights(self, checkpoint):
         os.makedirs(os.path.dirname(checkpoint), exist_ok=True)

@@ -25,7 +25,7 @@ logger = logging.getLogger(__name__)
 
 
 class FeatureMap:
-    def __init__(self, dataset_id, data_dir, version="tpu"):
+    def __init__(self, dataset_id, data_dir, version="torch"):
         self.dataset_id = dataset_id
         # the embedding stack resolves pretrained tables relative to this
         self.data_dir = data_dir

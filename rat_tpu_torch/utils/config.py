@@ -6,14 +6,16 @@ sections; dataset definitions live in ``dataset_config.yaml`` (or
 ``dataset_config/``) keyed by ``dataset_id``. The merged view layers,
 lowest precedence first: Base < expid section < dataset section.
 
-``yaml`` is imported only inside the loader, so importing this module
-(and the scoring path above it) needs no PyYAML.
+The YAML files are read by the port's own reader of the subset the
+configs use (``utils/yaml_subset.py``), so no path needs PyYAML.
 """
 
 import glob
 import json
 import logging
 import os
+
+from .yaml_subset import safe_load
 
 
 def _config_shards(config_dir, stem):
@@ -29,11 +31,10 @@ def _resolve_sections(shards, section_names):
     """Scan shards for the named top-level sections: a later shard that
     defines a section overwrites the earlier holder, and the scan stops
     after the first shard at whose end every section has been seen."""
-    import yaml
     found = {}
     for path in shards:
         with open(path, "r") as fh:
-            doc = yaml.safe_load(fh) or {}
+            doc = safe_load(fh) or {}
         for name in section_names:
             if name in doc:
                 found[name] = doc[name]
