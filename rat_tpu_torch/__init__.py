@@ -5,12 +5,15 @@ package so each counterpart is easy to find:
 
 - config, seeding, Monitor -> rat_tpu_torch.utils
 - feature map              -> rat_tpu_torch.features
-- BM25 retrieval           -> rat_tpu_torch.retrieval
-- split loading            -> rat_tpu_torch.data
+- BM25 retrieval           -> rat_tpu_torch.retrieval (exact match
+                              included)
+- split loading            -> rat_tpu_torch.data (block streaming in
+                              data.block_loader)
 - NN layers and encoders   -> rat_tpu_torch.nn
 - the four RAT variants    -> rat_tpu_torch.models (m2's fused path
                               in models.fast_forward)
-- train and eval runtime   -> rat_tpu_torch.engine (Trainer.fit, Adam
+- train and eval runtime   -> rat_tpu_torch.engine (Trainer.fit; Adam
+                              and optax's adamw, sgd, adagrad, rmsprop
                               with global-norm clipping in engine.optim)
 - Hopper kernels           -> rat_tpu_torch.ops (sources in csrc/): K1
                               the fused encoder block (differentiable),

@@ -12,8 +12,13 @@ best checkpoint -> valid and test evaluation -> append a line to
 
 ``--gpu N`` runs on ``cuda:N`` (default 0) and raises without that
 device; ``--gpu -1`` asks for the CPU, where every kernel runs its
-plain PyTorch version. The last log lines give the seconds of each
-stage and the launches of each kernel in this run.
+plain PyTorch version. With ``data_block_size`` the build writes
+``<split>_part_N.npy`` blocks, which stream block by block through
+retrieval, training and evaluation (``inter_block_retrieval: true`` in
+the retrieval configs retrieves each train block from all the others).
+The last log lines give the bytes of split arrays on the device at
+once, the seconds of each stage (a blocked split's retrieval per
+block) and the launches of each kernel in this run.
 """
 
 import argparse
@@ -25,6 +30,8 @@ import os
 import re
 import sys
 import time
+
+import torch
 
 from ..data import build_dataset, h5_generator
 from ..engine import Trainer
@@ -84,9 +91,11 @@ def run_experiment(config_dir, experiment_id, version="torch", gpu=0):
     train_gen, valid_gen = h5_generator(feature_map, stage="train", device=device,
                                         **params)
     test_gen = h5_generator(feature_map, stage="test", device=device, **params)
-    for split, gen in (("train", train_gen), ("valid", valid_gen), ("test", test_gen)):
-        if gen is not None:
-            stages[split + "_retrieval"] = gen.retrieval_s
+    # a blocked split retrieves block by block as it streams, filling
+    # its retrieval_s dict during the run
+    retrieval_s = {split + "_retrieval": gen.retrieval_s for split, gen in
+                   (("train", train_gen), ("valid", valid_gen), ("test", test_gen))
+                   if gen is not None}
 
     model = Trainer(feature_map, params, device=device)
     model.count_parameters()
@@ -119,7 +128,12 @@ def run_experiment(config_dir, experiment_id, version="torch", gpu=0):
                          " ".join(sys.argv), experiment_id, params["dataset_id"],
                          "N.A.", print_to_list(valid_result),
                          print_to_list(test_result)))
+    stages.update(retrieval_s)
     stages["total"] = time.perf_counter() - t_start
+    logging.info("Device memory: " + json.dumps(
+        {"peak_split_bytes": model.peak_split_bytes,
+         "max_memory_allocated": torch.cuda.max_memory_allocated(device)
+         if device.type == "cuda" else None}))
     logging.info("Stage seconds: " + json.dumps(stages))
     logging.info("Kernel launches: " + json.dumps(
         {k: m.launches - launches_before[k] for k, m in _KERNELS.items()}))

@@ -84,3 +84,22 @@ def load_array(data_path, key=None):
         with np.load(data_path) as npz:
             return npz[key]
     raise ValueError("unknown array file type: {}".format(data_path))
+
+
+def load_arrays(data_path):
+    """Every array of an ``.npz`` or ``.h5`` file, as a dict by key."""
+    if data_path.endswith(".h5"):
+        import h5py
+        with h5py.File(data_path, "r") as hf:
+            return {key: hf[key][()] for key in hf.keys()}
+    with np.load(data_path) as npz:
+        return {key: npz[key] for key in npz.files}
+
+
+def array_rows(data_path):
+    """Row count of a ``.npy`` or ``.h5`` split without reading it."""
+    if data_path.endswith(".h5"):
+        import h5py
+        with h5py.File(data_path, "r") as hf:
+            return hf[list(hf.keys())[0]].shape[0]
+    return np.load(data_path, mmap_mode="r").shape[0]

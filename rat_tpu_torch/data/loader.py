@@ -18,8 +18,9 @@ Retrieval precompute keeps the reference's semantics:
   _PartialRetrievalStore, so a killed precompute resumes from its last
   completed slice.
 
-Not ported yet: the mesh-sharded scan and block streaming
-(DataBlockGenerator).
+A split of more than one block streams through
+``data/block_loader.py::DataBlockGenerator``. Not ported yet: the
+mesh-sharded scan.
 """
 
 import glob
@@ -160,6 +161,16 @@ def _retrieve(db_np_data, qry_np_data, retrieval_configs, resume_tag=None,
     return store.results()
 
 
+def _sub_pool_rows(pool_rows, sub_indices, indices):
+    """A label-wise sub-pool's neighbour ids as ids of the pool rows
+    ``pool_rows``. A -1 (dropped) neighbour maps through the sub-pool's
+    last row, as in the JAX package; an empty sub-pool, where the JAX
+    package's lookup fails, matches nothing and stays -1."""
+    if len(sub_indices) == 0:
+        return indices
+    return pool_rows[sub_indices[indices]]
+
+
 def _fold_self_retrieval(data_array, retrieval_configs, device=None):
     """X-fold self-retrieval."""
     used_cols = retrieval_configs["used_col_indices"]
@@ -190,7 +201,7 @@ def _fold_self_retrieval(data_array, retrieval_configs, device=None):
                 res = _retrieve(fold_db_data[sub_indices], fold_qry_data,
                                 retrieval_configs,
                                 resume_tag="fold{}.{}".format(fi, sub), device=device)
-                parts_i.append(fold_db_indices[sub_indices[res.indices]])
+                parts_i.append(_sub_pool_rows(fold_db_indices, sub_indices, res.indices))
                 parts_v.append(res.values)
                 parts_l.append(res.lens)
             retrieved_indices.append(np.concatenate(parts_i, axis=-1))  # Bx(2K)
@@ -219,7 +230,8 @@ def _pool_retrieval(data_array, db_array, retrieval_configs, device=None):
                                  ("neg", np.nonzero(1 - db_labels)[0])):
             res = _retrieve(db_data[sub_indices], qry_data, retrieval_configs,
                             resume_tag="pool." + sub, device=device)
-            parts_i.append(sub_indices[res.indices])
+            parts_i.append(_sub_pool_rows(np.arange(len(db_labels)), sub_indices,
+                                          res.indices))
             parts_v.append(res.values)
             parts_l.append(res.lens)
         return (np.concatenate(parts_i, axis=-1),
@@ -230,17 +242,75 @@ def _pool_retrieval(data_array, db_array, retrieval_configs, device=None):
     return res.indices, res.values, res.lens
 
 
-def retrieval_cache_path(split_path, topk):
+def retrieval_cache_path(split_path, topk, tag=""):
     """Where a split's retrieval results are cached: beside the split,
-    ``retrieval_{topk}_<stem>.npz`` for a ``.npy`` split and the JAX
-    package's ``retrieval_{topk}_<name>.h5`` for an ``.h5`` split."""
+    ``retrieval_{tag}{topk}_<stem>.npz`` for a ``.npy`` split and the JAX
+    package's ``retrieval_{tag}{topk}_<name>.h5`` for an ``.h5`` split."""
     data_root, data_fname = os.path.split(split_path)
     if data_fname.endswith(".npy"):
         data_fname = data_fname[:-len(".npy")] + ".npz"
-    return os.path.join(data_root, "retrieval_{}_{}".format(topk, data_fname))
+    return os.path.join(data_root, "retrieval_{}{}_{}".format(tag, topk, data_fname))
 
 
-class DataGenerator(object):
+def save_retrieval_cache(arrays, cache):
+    """Write a dict of retrieval arrays in the cache's container."""
+    save = save_hdf5_atomic if cache.endswith(".h5") else save_npz_atomic
+    save(arrays, cache)
+
+
+def count_positives(darray):
+    """Label sum of a [N, F+1] split, or of the target rows of a
+    [N, 1+K, F+1] one."""
+    if darray.ndim == 2:
+        return darray[:, -1].sum()
+    if darray.ndim == 3:
+        return darray[:, 0, -1].sum()
+    raise ValueError("data_array must be [Nx(F+1)] or [Nx(K+1)x(F+1)]")
+
+
+class SplitBatches(object):
+    """What the trainer reads of a split loaded in memory (a
+    DataGenerator, or one block view of a DataBlockGenerator): rows
+    ``darray``, the neighbours' pool ``pool_darray`` and ids
+    ``retr_indices``, and batches of ``batch_size`` row ids. The -1
+    padded neighbor index wraps to the pool's LAST row, as in the
+    reference; ``neighbor_gather_indices`` makes that wrap explicit."""
+
+    @property
+    def topk(self):
+        return 0 if self.retr_indices is None else self.retr_indices.shape[-1]
+
+    def neighbor_gather_indices(self):
+        """Neighbor row ids with the reference's -1 -> last-row wrap."""
+        n_pool = len(self.pool_darray)
+        return np.where(self.retr_indices < 0,
+                        self.retr_indices + n_pool,
+                        self.retr_indices).astype(np.int64)
+
+    def neighbor_valid_mask(self):
+        """[N, K] float32: 1 = real neighbor, 0 = dropped zero-score slot."""
+        return (self.retr_indices >= 0).astype(np.float32)
+
+    def epoch_index_batches(self, rng=None):
+        """Yield (row_indices [B], valid_count) per step; the final
+        partial batch is padded by repeating index 0 and cut by
+        ``valid``."""
+        order = np.arange(self.num_samples)
+        if self.shuffle:
+            (rng or np.random).shuffle(order)
+        for start in range(0, self.num_samples, self.batch_size):
+            batch = order[start:start + self.batch_size]
+            valid = len(batch)
+            if valid < self.batch_size:
+                batch = np.concatenate(
+                    [batch, np.zeros(self.batch_size - valid, dtype=batch.dtype)])
+            yield batch.astype(np.int64), valid
+
+    def __len__(self):
+        return self.num_batches
+
+
+class DataGenerator(SplitBatches):
     """One split: data array + (optional) neighbor retrieval.
 
     Built either from split files (``data_path``: ``.npy`` from the
@@ -248,9 +318,6 @@ class DataGenerator(object):
     by ``retrieval_pool_fname``) or from arrays already in memory
     (``data_array`` and, for a pool other than "self", ``pool_array``),
     which writes no retrieval cache.
-
-    The -1 padded neighbor index wraps to the pool's LAST row, as in the
-    reference; ``neighbor_gather_indices`` makes that wrap explicit.
     """
 
     def __init__(self, data_path=None, batch_size=32, shuffle=False,
@@ -306,8 +373,7 @@ class DataGenerator(object):
                 else:
                     retrieved = _pool_retrieval(data_array, db_array, rc, device)
                 if cache is not None:
-                    save = save_hdf5_atomic if cache.endswith(".h5") else save_npz_atomic
-                    save(dict(zip(_RETRIEVED, retrieved)), cache)
+                    save_retrieval_cache(dict(zip(_RETRIEVED, retrieved)), cache)
                     _cleanup_partials(cache)
             retrieved_indices, retrieved_values, retrieved_lens = retrieved
             self.retrieval_s = time.perf_counter() - t0
@@ -330,53 +396,29 @@ class DataGenerator(object):
         self.num_blocks = 1
         self.num_samples = len(self.darray)
         self.num_batches = int(np.ceil(self.num_samples * 1.0 / self.batch_size))
-        self.num_positives = self.darray[:, -1].sum()
+        self.num_positives = count_positives(self.darray)
         self.num_negatives = self.num_samples - self.num_positives
-
-    @property
-    def topk(self):
-        return 0 if self.retr_indices is None else self.retr_indices.shape[-1]
-
-    def neighbor_gather_indices(self):
-        """Neighbor row ids with the reference's -1 -> last-row wrap."""
-        n_pool = len(self.pool_darray)
-        return np.where(self.retr_indices < 0,
-                        self.retr_indices + n_pool,
-                        self.retr_indices).astype(np.int64)
-
-    def neighbor_valid_mask(self):
-        """[N, K] float32: 1 = real neighbor, 0 = dropped zero-score slot."""
-        return (self.retr_indices >= 0).astype(np.float32)
-
-    def epoch_index_batches(self, rng=None):
-        """Yield (row_indices [B], valid_count) per step; the final
-        partial batch is padded by repeating index 0 and cut by
-        ``valid``."""
-        order = np.arange(self.num_samples)
-        if self.shuffle:
-            (rng or np.random).shuffle(order)
-        for start in range(0, self.num_samples, self.batch_size):
-            batch = order[start:start + self.batch_size]
-            valid = len(batch)
-            if valid < self.batch_size:
-                batch = np.concatenate(
-                    [batch, np.zeros(self.batch_size - valid, dtype=batch.dtype)])
-            yield batch.astype(np.int64), valid
-
-    def __len__(self):
-        return self.num_batches
 
 
 def get_data_generator(data_path_list, batch_size=32, shuffle=False,
                        feature_map=None, retrieval_configs=None,
                        retrieval_pool_fname=None, retrieval_augmented=False,
                        **kwargs):
+    """One block -> DataGenerator (the whole split on the device); more
+    -> the streaming DataBlockGenerator with per-block retrieval caches,
+    which keeps the whole-split and per-block caches apart."""
     if len(data_path_list) == 0:
         raise ValueError("invalid data files or paths.")
     if len(data_path_list) > 1:
-        raise NotImplementedError(
-            "multi-block splits need block streaming, not ported yet "
-            "(ROADMAP.md, Queue 1 item 8)")
+        from .block_loader import DataBlockGenerator
+        return DataBlockGenerator(data_block_list=data_path_list,
+                                  batch_size=batch_size,
+                                  shuffle=shuffle,
+                                  feature_map=feature_map,
+                                  retrieval_configs=retrieval_configs,
+                                  retrieval_pool_fname=retrieval_pool_fname,
+                                  retrieval_augmented=retrieval_augmented,
+                                  **kwargs)
     return DataGenerator(data_path=data_path_list,
                          batch_size=batch_size,
                          shuffle=shuffle,
@@ -385,6 +427,11 @@ def get_data_generator(data_path_list, batch_size=32, shuffle=False,
                          retrieval_pool_fname=retrieval_pool_fname,
                          retrieval_augmented=retrieval_augmented,
                          **kwargs)
+
+
+def tfrecord_generator():
+    """API-parity stub, as in the JAX package and the reference."""
+    raise NotImplementedError()
 
 
 def h5_generator(feature_map, stage="both", train_data=None, valid_data=None,

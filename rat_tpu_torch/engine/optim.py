@@ -5,6 +5,11 @@ Semantics, as in the JAX package:
 
 - Adam with torch defaults (betas 0.9/0.999, eps 1e-8, bias-corrected,
   no weight decay), which are optax.adam's;
+- adamw, sgd, adagrad and rmsprop written to optax's update rules with
+  optax's defaults (``OptaxRule``), not torch.optim's, whose differ:
+  adamw decays weights by 1e-4 inside the scaled update, adagrad starts
+  its accumulators at 0.1 with eps 1e-7 inside the root, rmsprop decays
+  by 0.9 with eps inside the root, sgd has no momentum;
 - global-norm gradient clipping BEFORE the update, to optax's
   ``clip_by_global_norm`` formula: with ``norm = sqrt(sum ||g||^2)``
   over every gradient, each gradient is scaled by ``max_norm / norm``
@@ -16,11 +21,8 @@ Semantics, as in the JAX package:
   (``embedding_layer.table``, ``label_embedding_layer.table`` and
   ``lr_layer.embedding_layer.table``);
 - the learning rate lives in the optimizer's ``param_groups``, so the
-  LR-on-plateau schedule can decay it without rebuilding Adam's state.
-
-Only Adam is ported: optax's other optimizers have defaults that differ
-from torch's (adagrad's initial accumulator, rmsprop's decay, adamw's
-weight decay).
+  LR-on-plateau schedule can decay it without rebuilding the state, as
+  ``optax.inject_hyperparams`` lets the JAX package.
 """
 
 import torch
@@ -39,14 +41,75 @@ def clip_grad_global_norm(params, max_norm):
     return norm
 
 
+class OptaxRule(torch.optim.Optimizer):
+    """One of optax's optimizers at its defaults, as the update
+    ``params += -lr * u`` with u:
+
+    - ``sgd``: the gradient g;
+    - ``adagrad``: t = g^2 + t (t from 0.1), u = g / sqrt(t + 1e-7)
+      (0 where t is 0);
+    - ``rmsprop``: nu = 0.1 g^2 + 0.9 nu (nu from 0), u = g / sqrt(nu + 1e-8);
+    - ``adamw``: Adam's bias-corrected mu_hat / (sqrt(nu_hat) + 1e-8)
+      (betas 0.9/0.999) plus 1e-4 times the parameter.
+    """
+
+    NAMES = ("adamw", "sgd", "adagrad", "rmsprop")
+
+    def __init__(self, params, name, lr):
+        if name not in self.NAMES:
+            raise ValueError("optimizer={} is not an optax rule here".format(name))
+        super().__init__(params, {"lr": lr})
+        self.name = name
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("OptaxRule.step takes no closure")
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is not None:
+                    p.add_(self._update(p, p.grad, self.state[p]) * -group["lr"])
+
+    def _update(self, p, g, state):
+        if self.name == "sgd":
+            return g
+        if self.name == "adagrad":
+            if not state:
+                state["sum_of_squares"] = torch.full_like(p, 0.1)
+            t = state["sum_of_squares"]
+            t.copy_(g * g + t)
+            return torch.where(t > 0, torch.rsqrt(t + 1e-7), 0.0) * g
+        if self.name == "rmsprop":
+            if not state:
+                state["nu"] = torch.zeros_like(p)
+            nu = state["nu"]
+            nu.copy_((1 - 0.9) * (g * g) + 0.9 * nu)
+            return torch.rsqrt(nu + 1e-8) * g
+        b1, b2 = 0.9, 0.999
+        if not state:
+            state.update(count=0, mu=torch.zeros_like(p), nu=torch.zeros_like(p))
+        state["count"] += 1
+        mu, nu, count = state["mu"], state["nu"], state["count"]
+        mu.copy_((1 - b1) * g + b1 * mu)
+        nu.copy_((1 - b2) * (g * g) + b2 * nu)
+        mu_hat = mu / (1 - b1 ** count)
+        nu_hat = nu / (1 - b2 ** count)
+        return mu_hat / (torch.sqrt(nu_hat) + 1e-8) + 1e-4 * p
+
+
 def get_optimizer(optimizer, params, lr, max_gradient_norm=10.):
-    """``torch.optim.Adam`` over ``params``; with ``max_gradient_norm``
-    above 0, every ``step()`` first clips the gradients of all its
-    parameters to that global norm."""
-    if not isinstance(optimizer, str) or optimizer.lower() != "adam":
+    """``adam`` (``torch.optim.Adam``, whose formula and defaults are
+    optax.adam's) or one of :class:`OptaxRule`'s over ``params``; with
+    ``max_gradient_norm`` above 0, every ``step()`` first clips the
+    gradients of all its parameters to that global norm."""
+    name = optimizer.lower() if isinstance(optimizer, str) else None
+    if name == "adam":
+        opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                               weight_decay=0.0)
+    elif name in OptaxRule.NAMES:
+        opt = OptaxRule(params, name, lr)
+    else:
         raise NotImplementedError("optimizer={} is not supported.".format(optimizer))
-    opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                           weight_decay=0.0)
     if max_gradient_norm is not None and max_gradient_norm > 0:
         def clip(o, args, kwargs):
             clip_grad_global_norm([p for g in o.param_groups for p in g["params"]],

@@ -15,6 +15,12 @@ device). Control flow as in the JAX package and the reference
 Each split's token, label and neighbor arrays are uploaded to the
 device once (``device_split``); a step receives only a [B] vector of
 row ids and gathers the (1+K) x (F+1) grid there (``_gather_batch``).
+A split of several blocks (data/block_loader.py::DataBlockGenerator)
+streams instead, in training and evaluation alike: one block view is
+uploaded, its batches run, and its buffers are released before the
+next is uploaded. ``lazy_valid_upload`` uploads the valid split for
+each evaluation and frees it after. ``peak_split_bytes`` counts the
+bytes of uploaded split arrays alive at once.
 The final partial batch is padded by repeating row 0: training masks
 the padded rows out of the loss and divides by the valid count (they
 still enter BatchNorm's batch statistics, as in the JAX package), and
@@ -29,17 +35,20 @@ epoch or the split is done, then come back in one copy.
 The JAX package's grouped ``lax.scan`` train dispatch is a way to cut
 JAX dispatch cost; here a plain loop takes its place. The full train
 state (``save_train_state``/``restore_train_state``, engine/checkpoint.py)
-resumes a run exactly. Not ported yet: block streaming, the mesh, and
-profiling hooks.
+resumes a run exactly. ``profile_dir`` writes a torch.profiler trace of
+steps 2 to 2 + ``profile_steps`` of the first epoch. Not ported yet:
+the mesh.
 """
 
 import logging
 import os
 import time
+import weakref
 
 import numpy as np
 import torch
 
+from ..data.block_loader import DataBlockGenerator
 from ..metrics import evaluate_metrics
 from ..models import build_model, rat_m2_fast_forward
 from ..nn.layers import set_dropout_generator
@@ -91,6 +100,23 @@ def _gather_batch(data, idx):
     return X, y, Xf, nmask
 
 
+class _ResidentBytes(object):
+    """Bytes of the uploaded split tensors that are still alive, and the
+    most alive at once."""
+
+    def __init__(self):
+        self.now = self.peak = 0
+
+    def add(self, tensor):
+        n = tensor.numel() * tensor.element_size()
+        self.now += n
+        self.peak = max(self.peak, self.now)
+        weakref.finalize(tensor, self._sub, n)
+
+    def _sub(self, n):
+        self.now -= n
+
+
 class Trainer(object):
     def __init__(self, feature_map, params, device=None):
         self.device = resolve_device(device)
@@ -116,6 +142,10 @@ class Trainer(object):
             os.path.join(self.model_dir, self.model_id + ".model"))
         self._validation_metrics = params.get("metrics", ["AUC", "logloss"])
         self._pool_device_cache = None
+        self._block_mode = False
+        self._resident = _ResidentBytes()
+        self._profile_dir = params.get("profile_dir", None)
+        self._profile_steps = params.get("profile_steps", 10)
         self._monitor = Monitor(kv=params.get("monitor", "AUC"))
         self._monitor_mode = params.get("monitor_mode", "max")
         self._patience = params.get("patience", 2)
@@ -134,6 +164,11 @@ class Trainer(object):
         self.step_losses = []
         #: each epoch's seconds, its evaluations included
         self.epoch_seconds = []
+
+    @property
+    def peak_split_bytes(self):
+        """The most bytes of uploaded split arrays alive at one time."""
+        return self._resident.peak
 
     @property
     def optimizer(self):
@@ -162,11 +197,16 @@ class Trainer(object):
                 and str(m.dnn_activations).lower() == "relu"
                 and self.params.get("neighbor_padding", "wrap") == "wrap")
 
-    def device_split(self, gen):
-        """Upload a split. Splits that read the same explicit pool file
-        share ONE pool upload; "self" pools key by array identity."""
+    def device_split(self, gen, share_pool=True):
+        """Upload a split. With ``share_pool``, splits that read the same
+        explicit pool file share ONE pool upload, and other pools key by
+        the array's ``id()``; the cache holds the array, so that its
+        address cannot pass to a later array while the key lives. Block
+        streams pass False: their pools go with their block."""
         def up(arr, dtype):
-            return torch.from_numpy(np.ascontiguousarray(arr, dtype=dtype)).to(self.device)
+            t = torch.from_numpy(np.ascontiguousarray(arr, dtype=dtype)).to(self.device)
+            self._resident.add(t)
+            return t
 
         darray = gen.darray
         data = {"tokens": up(darray[:, :-1], np.int64),
@@ -181,7 +221,7 @@ class Trainer(object):
             pool_key = getattr(gen, "retrieval_pool_fname", None)
             if pool_key in (None, "self"):
                 pool_key = id(pool)
-            cached = self._pool_device_cache
+            cached = self._pool_device_cache if share_pool else None
             if cached is not None and cached[0] == pool_key:
                 data.update(cached[1])
             else:
@@ -189,7 +229,8 @@ class Trainer(object):
                            "pool_labels": up(pool[:, -1], np.float32)}
                 if self._has_numeric:
                     pool_up["pool_numeric"] = up(pool[:, :-1], np.float32)
-                self._pool_device_cache = (pool_key, pool_up)
+                if share_pool:
+                    self._pool_device_cache = (pool_key, pool_up, pool)
                 data.update(pool_up)
             data["nbr"] = up(gen.neighbor_gather_indices(), np.int64)
             if self.params.get("neighbor_padding", "wrap") == "mask":
@@ -230,10 +271,46 @@ class Trainer(object):
         self.optimizer.step()
         return loss
 
+    def _block_stream(self, views, rng=None):
+        """(device data, row ids, valid count) for every batch of every
+        block view, one block on the device at a time: a view is
+        uploaded when its first batch is asked for, and the last batch
+        hands the caller the only reference to its buffers, so that the
+        block is freed when the caller drops it, before the next upload.
+        Row orders are drawn from ``rng`` block by block, after each
+        block is loaded, as in the JAX package."""
+        for view in views:
+            box = [self.device_split(view, share_pool=False)]
+            batches = list(view.epoch_index_batches(rng=rng))
+            for i, (idx, valid) in enumerate(batches):
+                yield (box.pop() if i == len(batches) - 1 else box[0]), idx, valid
+
+    def _epoch_stream(self, train_gen):
+        if self._block_mode:
+            return self._block_stream(
+                train_gen.iter_block_views(rng=self._shuffle_rng), self._shuffle_rng)
+        if self._train_data is None:
+            self._train_data = self.device_split(train_gen)
+        return ((self._train_data, idx, valid) for idx, valid in
+                train_gen.epoch_index_batches(rng=self._shuffle_rng))
+
+    def _eval_stream(self, data_gen, data=None):
+        if isinstance(data_gen, DataBlockGenerator):
+            return self._block_stream(data_gen.iter_block_views())
+        if data is None:
+            data = self.device_split(data_gen)
+        return ((data, idx, valid) for idx, valid in data_gen.epoch_index_batches())
+
     def fit(self, train_gen, validation_data=None, epochs=1):
+        """Train for ``epochs``. A DataBlockGenerator train split streams
+        block by block; a DataBlockGenerator valid split, or any valid
+        split under ``lazy_valid_upload``, is uploaded per evaluation."""
         self.valid_gen = validation_data
-        self._valid_data = self.device_split(validation_data)
-        self._train_data = self.device_split(train_gen)
+        self._block_mode = isinstance(train_gen, DataBlockGenerator)
+        lazy_valid = bool(self.params.get("lazy_valid_upload", False))
+        self._valid_data = None if (lazy_valid or isinstance(
+            validation_data, DataBlockGenerator)) else self.device_split(validation_data)
+        self._train_data = None if self._block_mode else self.device_split(train_gen)
         # a restored train state carries the monitor's bookkeeping on
         resumed, self._resumed = self._resumed or {}, None
         self._best_metric = resumed.get(
@@ -264,24 +341,57 @@ class Trainer(object):
     def train_one_epoch(self, train_gen, epoch):
         """Returns (epoch loss, examples, seconds). The epoch loss divides
         by the FULL batch count even when early stop cuts the epoch
-        short (the reference's denominator, base_model.py:226-228)."""
+        short (the reference's denominator, base_model.py:226-228). With
+        ``profile_dir``, steps 2 to 2 + ``profile_steps`` of the first
+        epoch are traced."""
         losses = []
         examples = 0
         tic = time.time()
         self.model.train()
-        for batch_index, (idx, valid) in enumerate(
-                train_gen.epoch_index_batches(rng=self._shuffle_rng)):
+        profiler = None
+        batch_index = 0
+        # no enumerate(): its cached result tuple would keep the last
+        # block's buffers alive into the evaluation
+        for data, idx, valid in self._epoch_stream(train_gen):
+            if self._profile_dir is not None and epoch == 0 and batch_index == 2:
+                profiler = self._start_profile()
             idx = torch.from_numpy(idx).to(self.device)
-            losses.append(self.train_step(self._train_data, idx, valid))
+            losses.append(self.train_step(data, idx, valid))
+            del data
             examples += valid
+            if profiler is not None and batch_index == 2 + self._profile_steps:
+                profiler = self._stop_profile(profiler)
             self.on_batch_end(batch_index)
+            batch_index += 1
             if self._stop_training:
                 break
+        if profiler is not None:
+            self._stop_profile(profiler)
         step_losses = torch.stack(losses).cpu().numpy()
         self.step_losses.extend(step_losses.tolist())
         epoch_secs = time.time() - tic
         # a float32 running sum, as the JAX package's
         return float(sum(step_losses)) / self._batches_per_epoch, examples, epoch_secs
+
+    def _start_profile(self):
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        profiler = profile(activities=activities)
+        profiler.start()
+        return profiler
+
+    def _stop_profile(self, profiler):
+        """Stop the trace and write it to ``profile_dir``; returns None."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.stop()
+        os.makedirs(self._profile_dir, exist_ok=True)
+        path = os.path.join(self._profile_dir, "trace_{}.json".format(os.getpid()))
+        profiler.export_chrome_trace(path)
+        logging.info("Profiler trace written to {}".format(path))
+        return None
 
     def on_batch_end(self, batch):
         self._total_batches += 1
@@ -327,15 +437,14 @@ class Trainer(object):
     # ---- evaluation -------------------------------------------------------
     @torch.no_grad()
     def _eval_collect(self, data_gen, data=None):
-        """Score every batch in eval mode; returns host (y_pred, y_true)
-        float32."""
-        if data is None:
-            data = self.device_split(data_gen)
+        """Score every batch in eval mode (a DataBlockGenerator block by
+        block); returns host (y_pred, y_true) float32."""
         training = self.model.training
         self.model.eval()
         preds, trues = [], []
-        for idx, valid in data_gen.epoch_index_batches():
-            out = self._forward(data, torch.from_numpy(idx).to(self.device))
+        for split_data, idx, valid in self._eval_stream(data_gen, data):
+            out = self._forward(split_data, torch.from_numpy(idx).to(self.device))
+            del split_data
             preds.append(out["y_pred"][:valid, 0])
             trues.append(out["y_true"][:valid, 0])
         self.model.train(training)

@@ -114,13 +114,20 @@ def test_idf_lookups_match_host_map():
 
 
 def test_exact_match_and_cuda_default_raise():
+    """Exact match is ported (tests/test_torch_exact_match.py holds it to
+    the JAX package): on the CPU it returns neighbours equal to the query
+    on the exact column. Without a card the default device raises, for
+    exact match as for the main scan."""
     db, qry = _data(6, 50, 5, 3, 5)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tbm25.bm25_topk_retrieval(db, qry, topK=3, device="cpu",
-                                  exact_match_col_indices=[0])
+    res = tbm25.bm25_topk_retrieval(db, qry, topK=3, device="cpu",
+                                    exact_match_col_indices=[0])
+    for i in range(len(qry)):
+        idx = res.indices[i][res.indices[i] >= 0]
+        assert len(idx) == res.lens[i] and (db[idx, 0] == qry[i, 0]).all()
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="CUDA is not available"):
-            tbm25.bm25_topk_retrieval(db, qry, topK=3)
+        for kw in ({}, {"exact_match_col_indices": [0]}):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                tbm25.bm25_topk_retrieval(db, qry, topK=3, **kw)
 
 
 _INT_MAX = np.iinfo(np.int32).max

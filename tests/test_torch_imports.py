@@ -1,8 +1,9 @@
 """The port's scoring, training and CLI paths and chip_smoke import
 without JAX, the JAX package, or the host packages the GPU machine lacks
 (pandas, h5py, sklearn, yaml): run in a subprocess whose import system
-refuses them. A second subprocess runs the port's CLI end to end, CSV to
-results line, under the same refusal."""
+refuses them. Further subprocesses run the port's CLI end to end, CSV to
+results line, under the same refusal: as published, and with
+``data_block_size`` and ``inter_block_retrieval`` set."""
 
 import os
 import subprocess
@@ -41,6 +42,8 @@ _BLOCKER = _BLOCK + """
 import chip_smoke
 import rat_tpu_torch
 from rat_tpu_torch.data.loader import DataGenerator, h5_generator
+from rat_tpu_torch.data.block_loader import DataBlockGenerator
+from rat_tpu_torch.metrics import evaluate_metrics
 from rat_tpu_torch.engine import Trainer
 from rat_tpu_torch.engine.optim import get_optimizer, regularization_loss
 from rat_tpu_torch.ops.bm25_score_chunk import bm25_score_chunk
@@ -79,7 +82,8 @@ make_mltag_like("./data/demo", n_train=1500, n_valid=300, n_test=300, n_users=40
 os.makedirs("configs/demo")
 for name in ("dataset_config.yaml", "model_config.yaml"):
     with open(os.path.join(repo, "configs", "demo", name)) as fh:
-        text = fh.read().replace("    epochs: 20\\n", "    epochs: 2\\n")
+        text = fh.read().replace("    epochs: 20\\n", "    epochs: 2\\n" + sys.argv[3])
+        text = text.replace("        topK: 5\\n", "        topK: 5\\n" + sys.argv[4])
     with open(os.path.join("configs", "demo", name), "w") as fh:
         fh.write(text)
 sys.argv = ["run_expid", "--config", "./configs/demo",
@@ -92,14 +96,28 @@ with open("exps/demo/demo_10fold_retrieval/RAT_m2_demo_10fold_retrieval.csv") as
 """
 
 
-def test_cli_runs_end_to_end_without_blocked_packages(tmp_path):
-    out = subprocess.run([sys.executable, "-c", _CLI_RUN, str(tmp_path), REPO],
+def _run_cli(tmp_path, model_lines="", retrieval_lines=""):
+    out = subprocess.run([sys.executable, "-c", _CLI_RUN, str(tmp_path), REPO,
+                          model_lines, retrieval_lines],
                          cwd=REPO, capture_output=True, text=True, timeout=300,
                          env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2"))
     assert out.returncode == 0, out.stderr[-3000:]
     line = out.stdout.strip().splitlines()[-1]
     assert "[exp_id] RAT_m2_demo_10fold_retrieval" in line and "[test] AUC: " in line
-    assert os.path.exists(tmp_path / "data" / "demo_10fold_retrieval" / "train.npy")
+    return sorted(os.listdir(tmp_path / "data" / "demo_10fold_retrieval"))
+
+
+def test_cli_runs_end_to_end_without_blocked_packages(tmp_path):
+    assert "train.npy" in _run_cli(tmp_path)
+
+
+def test_blocked_cli_runs_end_to_end_without_blocked_packages(tmp_path):
+    """Three train blocks, each retrieving from the other two."""
+    files = _run_cli(tmp_path, "    data_block_size: 600\n",
+                     "        inter_block_retrieval: true\n")
+    assert [f for f in files if f.startswith("train")] == [
+        "train_part_0.npy", "train_part_1.npy", "train_part_2.npy"]
+    assert len([f for f in files if f.startswith("retrieval_inter_")]) == 3
 
 
 def test_no_jax_or_rat_tpu_imports_in_port_sources():

@@ -139,5 +139,66 @@ def test_clip_is_optax_formula():
 
 
 def test_only_adam_is_ported():
-    with pytest.raises(NotImplementedError):
-        get_optimizer("sgd", [torch.nn.Parameter(torch.zeros(1))], 1e-3)
+    """Every optimizer name the JAX package takes builds; any other name
+    is refused, as there."""
+    for name in ("adam", "Adam", "adamw", "sgd", "adagrad", "rmsprop"):
+        get_optimizer(name, [torch.nn.Parameter(torch.zeros(1))], 1e-3)
+        jopt.get_optimizer(name, 1e-3)
+    for bad in ("lamb", "adadelta", None):
+        with pytest.raises(NotImplementedError):
+            get_optimizer(bad, [torch.nn.Parameter(torch.zeros(1))], 1e-3)
+        with pytest.raises(NotImplementedError):
+            jopt.get_optimizer(bad, 1e-3)
+
+
+@pytest.mark.parametrize("grad_scale,clipped", [(0.3, False), (10.0, True)])
+@pytest.mark.parametrize("name", ["adamw", "sgd", "adagrad", "rmsprop"])
+def test_optax_rules_match_optax(name, grad_scale, clipped):
+    """Five steps of each of optax's other optimizers at its defaults,
+    behind the clip at 10, from the same parameters and gradients, the
+    learning rate decayed before the fourth as the plateau schedule
+    does: every parameter within 1e-6 of optax's after every step."""
+    lr, max_norm = 1e-2, 10.0
+    params, _ = _params_and_grads(4, grad_scale)
+    tx = jopt.get_optimizer(name, lr, max_norm)
+    jparams = {k: jnp.asarray(v) for k, v in params.items()}
+    state = tx.init(jparams)
+    tparams = {k: torch.nn.Parameter(torch.from_numpy(v.copy())) for k, v in params.items()}
+    opt = get_optimizer(name, list(tparams.values()), lr, max_norm)
+    for step in range(5):
+        _, grads = _params_and_grads(10 + step, grad_scale)
+        norm = np.sqrt(sum(float(np.sum(g.astype(np.float64) ** 2)) for g in grads.values()))
+        assert (norm >= max_norm) == clipped
+        if step == 3:
+            jopt.set_learning_rate(state, lr * 0.1)
+            set_learning_rate(opt, lr * 0.1)
+            assert get_learning_rate(opt) == pytest.approx(jopt.get_learning_rate(state))
+        updates, state = tx.update({k: jnp.asarray(v) for k, v in grads.items()},
+                                   state, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        for k, p in tparams.items():
+            p.grad = torch.from_numpy(grads[k].copy())
+        opt.step()
+        for k, p in tparams.items():
+            np.testing.assert_allclose(p.detach().numpy(), np.asarray(jparams[k]),
+                                       rtol=0, atol=1e-6, err_msg="{} step {}".format(k, step))
+
+
+def test_optax_rule_state_round_trips():
+    """The state dict of an OptaxRule restores the same next step."""
+    params, grads = _params_and_grads(5, 0.3)
+    runs = []
+    for restore in (False, True):
+        tparams = [torch.nn.Parameter(torch.from_numpy(v.copy())) for v in params.values()]
+        opt = get_optimizer("adamw", tparams, 1e-2)
+        for p, g in zip(tparams, grads.values()):
+            p.grad = torch.from_numpy(g.copy())
+        opt.step()
+        if restore:
+            state = opt.state_dict()
+            opt = get_optimizer("adamw", tparams, 1e-2)
+            opt.load_state_dict(state)
+        opt.step()
+        runs.append([p.detach().clone() for p in tparams])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
