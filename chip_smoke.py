@@ -88,7 +88,19 @@ Phases, any failure exits non-zero:
              block sizes, neighbours of 512 queries in each against plain
              scans, the trainer's peak of split bytes equal to one
              block's, the trace file; stage seconds per block.
-12. exact_match — exact-match retrieval over the serve phase's arrays
+12. mesh    — the multi-device layer at the same ML-Tag config, on the
+             serve and train arrays: (a) the pool-sharded BM25 scan with
+             4 shards run in turn (each K2 on its 400,000-row shard, then
+             the merge), equal bit for bit to the unsharded retrieval,
+             K2 = 4 x 41; (b) a one-rank NCCL process group and a real
+             1x1 mesh: the 10-fold self-retrieval through the sharded
+             engine (its cache equal to the unsharded neighbours), the
+             first step's loss and gradients against the non-mesh
+             Trainer's, one epoch of Trainer.fit with K1 on the local
+             batch, the evaluation, the weights and full-state round
+             trips, and ms per step beside the non-mesh trainer's (the
+             cost of the collectives on one rank).
+13. exact_match — exact-match retrieval over the serve phase's arrays
              (200,686 requests, 1,404,801 rows, K=5, batches of 5000):
              user_id exact on Zipf ids, user_id exact on uniform ids, all
              three columns exact; each call's first batch equal to the
@@ -113,6 +125,7 @@ import types
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from rat_tpu_torch.data.loader import DataGenerator, retrieval_cache_path
 from rat_tpu_torch.data.synthetic import make_mltag_like
@@ -124,7 +137,10 @@ from rat_tpu_torch.ops import _build
 from rat_tpu_torch.ops import bm25_score_chunk as k3
 from rat_tpu_torch.ops import bm25_topk as k2
 from rat_tpu_torch.ops import cross_intra_block as k1
-from rat_tpu_torch.retrieval import bm25
+from rat_tpu_torch.parallel import initialize_distributed, make_mesh
+from rat_tpu_torch.parallel.distributed import free_port
+from rat_tpu_torch.parallel.dryrun import local_leaves, one_step
+from rat_tpu_torch.retrieval import bm25, sharded
 
 # RAT_m2_movielenslatest_x1_10fold_retrieval at its published widths
 # and training settings (configs/RAT_m2/movielenslatest_x1/
@@ -1153,6 +1169,168 @@ def variants(device, seed, train_gen, valid_gen, batch_size, model_root):
     return out
 
 
+def mesh_scan(device, pool, test, shards=4, retrieval=MLTAG_RETRIEVAL):
+    """Mesh phase (a): the pool-sharded BM25 scan with ``shards`` shards
+    run in turn in this process (what each rank of a ``shards``-rank
+    world computes: K2 on its shard, then the merge), held equal bit for
+    bit to the unsharded retrieval: values, indices and lens. K2's
+    launches are counted over the sharded run only. Returns (results,
+    launches)."""
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    used = retrieval["used_col_indices"]
+    db = pool[:, used].astype(np.int64)
+    qry = test[:, used].astype(np.int64)
+    kw = {k: retrieval[k] for k in ("qry_batch_size", "db_chunk_size", "topK")}
+    want = bm25.bm25_topk_retrieval(db, qry, device=device, **kw)
+    timings = {}
+    k1.launches = k2.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    got = sharded.sharded_bm25_topk_retrieval(db, qry, n_shards=shards, device=device,
+                                              timings=timings, **kw)
+    sync()
+    total_s = time.perf_counter() - t0
+    launches = {"cross_intra_block": k1.launches, "bm25_topk": k2.launches}
+    for name, a, b in zip(("values", "indices", "lens"), got, want):
+        if not np.array_equal(a, b):
+            raise AssertionError("mesh (a): the sharded {} differ from the unsharded "
+                                 "retrieval's".format(name))
+    expected = {"cross_intra_block": 0,
+                "bm25_topk": shards * _k2_batches(len(qry), retrieval) if cuda else 0}
+    if launches != expected:
+        raise AssertionError("mesh (a): launches {} against the expected {}".format(
+            launches, expected))
+    return {"shards": shards, "shard_rows": sharded.shard_rows(len(db), shards,
+                                                               kw["topK"], kw["db_chunk_size"]),
+            "queries": len(qry), "pool_rows": len(db), "total_s": total_s,
+            "shard_scan_s": timings["scan_s"], "merge_s": timings["merge_s"],
+            "merge_share": timings["merge_s"] / total_s, "equal": True}, launches
+
+
+def mesh_train(device, seed, pool, valid_gen, batch_size, work_dir, train_gen, reference,
+               timing_steps=20):
+    """Mesh phase (b): a one-rank process group (NCCL on the card, gloo on
+    the CPU) and a real 1x1 mesh through the mesh code path. The train
+    arrays' 10-fold self-retrieval through the sharded engine
+    (``sharded_pool_min_rows`` lowered to 1), its cache, written by rank
+    0, equal to the unsharded neighbours of ``train_gen``; the first
+    step's loss and gradients against the non-mesh Trainer's on the same
+    batch (equal bit for bit: a one-rank mesh shards no table and its
+    collectives copy); one epoch of
+    Trainer.fit (K1 on the local batch), the evaluation, the weights and
+    the full-state round trips (predictions and every leaf equal); the
+    steady ms per step against the non-mesh ``reference`` trainer's, in
+    the order reference, mesh, mesh, reference (``timing_steps`` steps
+    each), and on a GPU a short profile of the mesh steps (device time by
+    kernel, idle share). The retrieval's seconds include the cache's
+    write by rank 0 and its read back; the comparison's own read of the
+    cache is timed apart. Launches are counted over
+    the retrieval (K2) and over the fit, evaluations and round trips (K1).
+    Returns (results, launches)."""
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    initialize_distributed(device, "tcp://localhost:{}".format(free_port()), 1, 0)
+    try:
+        mesh = make_mesh(1, 1)
+        fm = mltag_feature_map()
+        retrieval = MLTAG_RETRIEVAL
+        path = os.path.join(work_dir, "mesh_train.npy")
+        np.save(path, pool)
+        k1.launches = k2.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        gen = DataGenerator(path, batch_size=batch_size, shuffle=True, feature_map=fm,
+                            retrieval_configs=dict(retrieval, mesh=mesh,
+                                                   sharded_pool_min_rows=1),
+                            retrieval_pool_fname="self", retrieval_augmented=True,
+                            device=device)
+        sync()
+        retrieval_s = time.perf_counter() - t0
+        k2_launches = k2.launches
+        t0 = time.perf_counter()
+        with np.load(retrieval_cache_path(path, retrieval["topK"])) as npz:
+            cache = {key: npz[key] for key in ("indices", "values", "lens")}
+        cache_read_s = time.perf_counter() - t0
+        for key, attr in (("indices", "retr_indices"), ("values", "retr_values"),
+                          ("lens", "retr_lens")):
+            if not np.array_equal(cache[key], getattr(train_gen, attr)):
+                raise AssertionError("mesh (b): the sharded 10-fold cache's {} differ "
+                                     "from the unsharded neighbours".format(key))
+
+        params = dict(MLTAG_PARAMS, batch_size=batch_size, seed=seed,
+                      model_root=os.path.join(work_dir, "mesh_exps"))
+        idx, valid = _train_batches(reference, gen, seed, 1)[0]
+        steps = []
+        for trainer in (Trainer(fm, params, mesh=mesh), Trainer(fm, params, device=device)):
+            steps.append(one_step(trainer, trainer.device_split(gen), idx, valid))
+            del trainer
+        (loss_m, grads_m, _), (loss_p, grads_p, _) = steps
+        if sorted(grads_m) != sorted(grads_p):
+            raise AssertionError("mesh (b): the first step's gradients are of other "
+                                 "parameters")
+        worst = max(float((grads_m[n] - g).abs().max()) for n, g in grads_p.items())
+        # a one-rank mesh runs the same operations: equal bit for bit
+        if loss_m != loss_p or not all(torch.equal(grads_m[n], g)
+                                       for n, g in grads_p.items()):
+            raise AssertionError("mesh (b): the first step's loss {} / {} or gradients "
+                                 "(worst {:.3e}) differ".format(loss_m, loss_p, worst))
+        del steps
+
+        trainer = Trainer(fm, params, mesh=mesh)
+        k1.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        trainer.fit(gen, valid_gen, epochs=1)
+        sync()
+        epoch_s = time.perf_counter() - t0
+        logs = trainer.evaluate(valid_gen, data=trainer._valid_data)
+        pred = trainer.predict(valid_gen, data=trainer._valid_data)
+        ckpt = os.path.join(work_dir, "mesh.model")
+        trainer.save_weights(ckpt)
+        trainer.load_weights(ckpt)
+        if not np.array_equal(pred, trainer.predict(valid_gen, data=trainer._valid_data)):
+            raise AssertionError("mesh (b): the weights round trip changed predictions")
+        before = local_leaves(trainer)
+        trainer.save_train_state(os.path.join(work_dir, "mesh_state"))
+        trainer.restore_train_state(os.path.join(work_dir, "mesh_state"))
+        after = local_leaves(trainer)
+        if len(before) != len(after) or not all(torch.equal(a, b)
+                                                for a, b in zip(before, after)):
+            raise AssertionError("mesh (b): the full-state round trip changed a leaf")
+        sync()
+        launches = {"cross_intra_block": k1.launches, "bm25_topk": k2_launches}
+        depth = trainer.model.depth
+        # the fit's evaluation, evaluate, and the predicts around the reload
+        expected = {"cross_intra_block": depth * (len(gen) + 4 * len(valid_gen)),
+                    "bm25_topk": _fold_k2_batches(len(pool), retrieval)} if cuda \
+            else {"cross_intra_block": 0, "bm25_topk": 0}
+        if launches != expected:
+            raise AssertionError("mesh (b): launches {} against the expected {}".format(
+                launches, expected))
+        losses = np.asarray(trainer.step_losses)
+        if len(losses) != len(gen) or not np.all(np.isfinite(losses)):
+            raise AssertionError("mesh (b): bad step losses")
+
+        batches = _train_batches(trainer, gen, seed, timing_steps + 2)
+        ms = {"plain": [], "mesh": []}
+        for name in ("plain", "mesh", "mesh", "plain"):
+            runner = reference if name == "plain" else trainer
+            ms[name].append(steady_ms_per_step(runner, gen, seed, timing_steps, batches))
+        profile = profile_train(trainer, gen, seed, steps=10, rows=10,
+                                label="mesh (b)") if cuda else {}
+        return {"retrieval_s": retrieval_s, "cache_read_s": cache_read_s,
+                "first_step_loss": loss_m,
+                "first_step_loss_abs_err": abs(loss_m - loss_p),
+                "first_step_grad_max_abs_err": worst, "steps": len(losses),
+                "epoch_s": epoch_s, "AUC": logs["AUC"], "logloss": logs["logloss"],
+                "ms_per_step_mesh": ms["mesh"], "ms_per_step_plain": ms["plain"],
+                "mesh_device_ms_per_step": profile.get("device_ms_per_step"),
+                "mesh_idle_share": profile.get("idle_share")}, launches
+    finally:
+        dist.destroy_process_group()
+
+
 def _set_key(text, key, value, then=()):
     """``text`` with the one ``key: ...`` line set to ``value``, and the
     lines ``then`` added after it at its indent."""
@@ -1662,6 +1840,21 @@ def main(argv=None):
                        model_root)
         variant_launches = {k: sum(r["launches"][k] for r in res.values())
                             for k in ("cross_intra_block", "bm25_topk")}
+
+        t0 = time.perf_counter()
+        res, scan_launches = mesh_scan(device, pool, test)
+        print("mesh (a) sharded scan, {} shards in turn: {}".format(
+            res["shards"], json.dumps(res)))
+        print("mesh (a) launches (asserted: K2 = shards x query batches): "
+              + json.dumps(scan_launches))
+        res, train_launches_m = mesh_train(device, args.seed, pool, trainer.valid_gen,
+                                           batch_size, model_root, train_gen, trainer)
+        print("mesh (b) one-rank NCCL mesh: " + json.dumps(res))
+        print("mesh (b) launches (asserted: K1 = depth x (train steps + 4 x valid "
+              "batches), K2 = query batches of the 10 folds): "
+              + json.dumps(train_launches_m))
+        print("mesh phase: {:.1f} s".format(time.perf_counter() - t0))
+        mesh_launches = {k: scan_launches[k] + train_launches_m[k] for k in scan_launches}
     del trainer, train_gen
     torch.cuda.empty_cache()
     if k3.launches != k3_checks:
@@ -1705,7 +1898,7 @@ def main(argv=None):
                "cli": cli_launches,
                "blocks": {k: block_launches["a"][k] + block_launches["b"][k]
                           for k in block_launches["a"]},
-               "exact_match": exm_launches}
+               "exact_match": exm_launches, "mesh": mesh_launches}
     for entry in kernels:
         counts = {path: launches.get(entry["name"], 0)
                   for path, launches in by_path.items()}

@@ -16,6 +16,8 @@ in the cache, so that neither training nor evaluation ever needs more
 than one block. Its cache name carries a digest of the block set.
 
 The trainer uploads one block view at a time (engine/trainer.py).
+Under a mesh, block caches are written as the one-block split's are
+(data/loader.py): by rank 0, then read back by every rank.
 """
 
 import hashlib
@@ -26,6 +28,7 @@ from collections import Counter
 
 import numpy as np
 
+from ..parallel.distributed import from_rank0, on_rank0
 from ..retrieval.bm25 import bm25_topk_retrieval
 from .io import array_rows, load_arrays, load_hdf5
 from .loader import (SplitBatches, _fold_self_retrieval, _pool_retrieval,
@@ -214,10 +217,15 @@ class DataBlockGenerator(object):
                        and self.num_blocks > 1)
         tag = "inter_%s_" % self._block_set_digest() if inter_block else ""
         cache = retrieval_cache_path(block_path, rc["topK"], tag)
-        if os.path.exists(cache):
+        mesh = rc.get("mesh")
+
+        def read():
             got = load_arrays(cache)
             return (got["indices"], got["values"], got["lens"],
                     got.get("neighbor_rows"))
+
+        if from_rank0(mesh, lambda: os.path.exists(cache)):
+            return read()
         rows = None
         if inter_block:
             idx, vals, lens, rows = _inter_block_retrieval(
@@ -230,7 +238,9 @@ class DataBlockGenerator(object):
         payload = {"indices": idx, "values": vals, "lens": lens}
         if rows is not None:
             payload["neighbor_rows"] = rows
-        save_retrieval_cache(payload, cache)
+        on_rank0(mesh, lambda: save_retrieval_cache(payload, cache))
+        if mesh is not None:
+            return read()
         return idx, vals, lens, rows
 
     def iter_block_views(self, rng=None):

@@ -19,8 +19,16 @@ Retrieval precompute keeps the reference's semantics:
   completed slice.
 
 A split of more than one block streams through
-``data/block_loader.py::DataBlockGenerator``. Not ported yet: the
-mesh-sharded scan.
+``data/block_loader.py::DataBlockGenerator``.
+
+Under a mesh (``retrieval_configs["mesh"]``, set by the CLI), a pool of
+at least ``sharded_pool_min_rows`` rows (default 2,000,000) is scanned by
+the pool-sharded engine (retrieval/sharded.py), each data rank its shard;
+a smaller pool is scanned whole by every rank. The resumable slices take
+the same engine with the pool's IDF computed once. Rank 0 decides whether
+a cache exists, writes caches and the resumable partials, and every rank
+reads a written cache back after a barrier, so that all ranks hold the
+same neighbours.
 """
 
 import glob
@@ -33,15 +41,21 @@ import time
 
 import numpy as np
 
+from ..parallel.distributed import from_rank0, on_rank0
 from ..retrieval.bm25 import RetrievalResults, _compute_idf_tables, bm25_topk_retrieval
+from ..retrieval.sharded import sharded_bm25_topk_retrieval
 from .io import load_array, save_hdf5_atomic, save_npz_atomic
 
 # queries per checkpointed slice of a resumable precompute: a crash
 # costs one slice, not the whole split's scan
 _RESUME_SLICE_ROWS = 2_000_000
 
+# pools below this size fit one device's scan; above it, under a mesh,
+# the pool is sharded over the mesh's data axis
+_SHARDED_POOL_MIN_ROWS = 2_000_000
+
 # the loader's own knobs, not engine kwargs
-_LOADER_KEYS = ("resume_base", "resume_slice_rows")
+_LOADER_KEYS = ("resume_base", "resume_slice_rows", "mesh", "sharded_pool_min_rows")
 
 _RETRIEVED = ("indices", "values", "lens")
 
@@ -106,6 +120,23 @@ class _PartialRetrievalStore:
                                 np.array(self.arrays["lens"]))
 
 
+class _PeerStore:
+    """What a rank other than 0 keeps of a resumable precompute: the
+    cursor rank 0 read, and nothing else. Its results are placeholders:
+    the rank reads the cache rank 0 writes."""
+
+    def __init__(self, n_rows, topk, done_rows):
+        self.n_rows, self.topk, self.done_rows = n_rows, topk, done_rows
+
+    def append(self, lo, res):
+        self.done_rows = lo + len(res.lens)
+
+    def results(self):
+        return RetrievalResults(np.zeros((self.n_rows, self.topk)),
+                                np.full((self.n_rows, self.topk), -1, dtype=np.int64),
+                                np.zeros(self.n_rows, dtype=np.int64))
+
+
 def _cleanup_partials(resume_base):
     for p in glob.glob(glob.escape(resume_base) + ".*.partial"):
         shutil.rmtree(p)
@@ -113,7 +144,9 @@ def _cleanup_partials(resume_base):
 
 def _retrieve(db_np_data, qry_np_data, retrieval_configs, resume_tag=None,
               device=None):
-    """Single-device engine dispatch.
+    """Engine dispatch: the pool-sharded scan under a mesh when the pool
+    has at least ``sharded_pool_min_rows`` rows (the same results
+    either way), else the single-device engine.
 
     With ``resume_tag`` and a ``resume_base`` path in the configs, query
     sets larger than ``resume_slice_rows`` run as checkpointed slices
@@ -122,8 +155,17 @@ def _retrieve(db_np_data, qry_np_data, retrieval_configs, resume_tag=None,
     are computed once and reused across slices."""
     rc = retrieval_configs
     engine_kwargs = {k: v for k, v in rc.items() if k not in _LOADER_KEYS}
+    mesh = rc.get("mesh")
+    sharded = mesh is not None and \
+        len(db_np_data) >= rc.get("sharded_pool_min_rows", _SHARDED_POOL_MIN_ROWS)
 
     def run(qry, **extra):
+        if sharded:
+            logging.info("Sharded BM25 pool scan over mesh %s (%d rows%s)", mesh.shape,
+                         len(db_np_data), ", dense exact-match mask"
+                         if rc.get("exact_match_col_indices") else "")
+            return sharded_bm25_topk_retrieval(db_np_data, qry, mesh,
+                                               **engine_kwargs, **extra)
         return bm25_topk_retrieval(db_np_data=db_np_data, qry_np_data=qry,
                                    device=device, **engine_kwargs, **extra)
 
@@ -139,8 +181,13 @@ def _retrieve(db_np_data, qry_np_data, retrieval_configs, resume_tag=None,
     # is a row cursor, so a partial written under one slice size resumes
     # correctly under any other
     fingerprint = "{}:{}:{}:{}".format(Q, len(db_np_data), topk, ncols)
-    store = _PartialRetrievalStore("{}.{}.partial".format(resume_base, resume_tag),
-                                   Q, topk, fingerprint)
+    path = "{}.{}.partial".format(resume_base, resume_tag)
+    if mesh is None or mesh.rank == 0:
+        store = _PartialRetrievalStore(path, Q, topk, fingerprint)
+    if mesh is not None:
+        done = from_rank0(mesh, lambda: store.done_rows)
+        if mesh.rank != 0:
+            store = _PeerStore(Q, topk, done)
     if store.done_rows:
         logging.info("Resuming retrieval '%s' at %d/%d queries",
                      resume_tag, store.done_rows, Q)
@@ -362,7 +409,8 @@ class DataGenerator(SplitBatches):
                 db_array = load_array(retrieval_pool_fname)
             cache = None if data_paths is None \
                 else retrieval_cache_path(data_paths[0], retrieval_configs["topK"])
-            if cache is not None and os.path.exists(cache):
+            mesh = retrieval_configs.get("mesh")
+            if cache is not None and from_rank0(mesh, lambda: os.path.exists(cache)):
                 retrieved = tuple(load_array(cache, key) for key in _RETRIEVED)
             else:
                 # resume_base switches long scans to checkpointed slices
@@ -373,8 +421,12 @@ class DataGenerator(SplitBatches):
                 else:
                     retrieved = _pool_retrieval(data_array, db_array, rc, device)
                 if cache is not None:
-                    save_retrieval_cache(dict(zip(_RETRIEVED, retrieved)), cache)
-                    _cleanup_partials(cache)
+                    def write():
+                        save_retrieval_cache(dict(zip(_RETRIEVED, retrieved)), cache)
+                        _cleanup_partials(cache)
+                    on_rank0(mesh, write)
+                    if mesh is not None:
+                        retrieved = tuple(load_array(cache, key) for key in _RETRIEVED)
             retrieved_indices, retrieved_values, retrieved_lens = retrieved
             self.retrieval_s = time.perf_counter() - t0
             if retrieval_augmented:

@@ -28,14 +28,18 @@ Semantics, as in the JAX package:
 import torch
 
 
-def clip_grad_global_norm(params, max_norm):
+def clip_grad_global_norm(params, max_norm, sq_norm=None):
     """Scale the gradients of ``params`` in place by ``max_norm / norm``
     when their global norm is at least ``max_norm`` (optax's formula).
-    Stays on the device: no host sync. Returns the norm."""
+    ``sq_norm(params)``, when given, returns the squared global norm (a
+    mesh sums the sharded tables' squares over its model group); by
+    default it is the sum of every gradient's squares. Stays on the
+    device: no host sync. Returns the norm."""
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
         return None
-    norm = torch.sqrt(sum((g * g).sum() for g in grads))
+    norm = torch.sqrt(sq_norm(params) if sq_norm is not None
+                      else sum((g * g).sum() for g in grads))
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     torch._foreach_mul_(grads, scale)
     return norm
@@ -97,11 +101,12 @@ class OptaxRule(torch.optim.Optimizer):
         return mu_hat / (torch.sqrt(nu_hat) + 1e-8) + 1e-4 * p
 
 
-def get_optimizer(optimizer, params, lr, max_gradient_norm=10.):
+def get_optimizer(optimizer, params, lr, max_gradient_norm=10., grad_sq_norm=None):
     """``adam`` (``torch.optim.Adam``, whose formula and defaults are
     optax.adam's) or one of :class:`OptaxRule`'s over ``params``; with
     ``max_gradient_norm`` above 0, every ``step()`` first clips the
-    gradients of all its parameters to that global norm."""
+    gradients of all its parameters to that global norm
+    (``grad_sq_norm`` as :func:`clip_grad_global_norm`'s ``sq_norm``)."""
     name = optimizer.lower() if isinstance(optimizer, str) else None
     if name == "adam":
         opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
@@ -113,7 +118,7 @@ def get_optimizer(optimizer, params, lr, max_gradient_norm=10.):
     if max_gradient_norm is not None and max_gradient_norm > 0:
         def clip(o, args, kwargs):
             clip_grad_global_norm([p for g in o.param_groups for p in g["params"]],
-                                  max_gradient_norm)
+                                  max_gradient_norm, grad_sq_norm)
         opt.register_step_pre_hook(clip)
     return opt
 

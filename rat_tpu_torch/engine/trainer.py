@@ -36,8 +36,39 @@ The JAX package's grouped ``lax.scan`` train dispatch is a way to cut
 JAX dispatch cost; here a plain loop takes its place. The full train
 state (``save_train_state``/``restore_train_state``, engine/checkpoint.py)
 resumes a run exactly. ``profile_dir`` writes a torch.profiler trace of
-steps 2 to 2 + ``profile_steps`` of the first epoch. Not ported yet:
-the mesh.
+steps 2 to 2 + ``profile_steps`` of the first epoch. ``dedup_neighbors``
+(or RAT_TPU_DEDUP_NEIGHBORS=1) gathers each batch's pool rows once per
+distinct row and expands them with the inverse index: the same grid.
+
+Under a mesh (``mesh``, parallel/mesh.py), one process per device:
+
+- every rank draws the full initial weights from the same generator and
+  keeps its rows of the row-sharded tables (``embedding_layer.table``
+  and the wide tower's), so a mesh run starts from one device's
+  weights; lookups sum the ranks' partial rows over the model group
+  (nn/embedding.py). A model axis of 1 keeps the tables whole and
+  looks them up locally;
+- every rank uploads whole splits and walks the same global batches,
+  running its contiguous slice of each; its loss is its masked sum over
+  the GLOBAL valid count, and the regularizer is added on data rank 0
+  only (the other data ranks add it times 0, so that every rank's
+  gradients cover the same parameters);
+- after backward, all gradients are summed over the data group (the loss
+  is already divided globally: a mean would be wrong), and the
+  global-norm clip sums the sharded tables' squared norms over the model
+  group;
+- BatchNorm takes the global batch's statistics over the data group,
+  and dropout draws the global batch's mask and keeps its rows, so a
+  step equals one device's step; kernel K1 runs on the local slice when
+  its gate holds (BatchNorm closes it, so K1 never reduces across
+  ranks);
+- evaluation all-gathers the predictions over the data group in row
+  order, and every rank computes the same metrics;
+- ``save_weights`` and ``save_train_state`` gather the tables' rows and
+  their optimizer moments and rank 0 writes what one device writes;
+  ``load_weights`` and ``restore_train_state`` read on rank 0, broadcast,
+  and every rank keeps its rows. The reported step loss is the global
+  one, on every rank.
 """
 
 import logging
@@ -47,11 +78,15 @@ import weakref
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.block_loader import DataBlockGenerator
 from ..metrics import evaluate_metrics
 from ..models import build_model, rat_m2_fast_forward
-from ..nn.layers import set_dropout_generator
+from ..nn.embedding import PackedEmbedding
+from ..nn.layers import set_batch_norm_group, set_dropout_generator
+from ..parallel import (from_rank0, is_row_sharded, on_rank0, process_local_rows,
+                        shard_range)
 from ..utils import Monitor, resolve_device
 from .optim import (get_learning_rate, get_optimizer, regularization_loss,
                     set_learning_rate)
@@ -78,11 +113,13 @@ def get_loss_fn(loss):
     return loss  # callable
 
 
-def _gather_batch(data, idx):
+def _gather_batch(data, idx, dedup_neighbors=False):
     """Assemble the [B, 1+K, L] grid from device-resident split arrays.
     Returns (X tokens, y labels, X_num — the float values of the same
     columns, or None without numeric fields —, nbr_mask or None — the
-    [B, 1+K] mask of the corrected ``neighbor_padding="mask"`` mode)."""
+    [B, 1+K] mask of the corrected ``neighbor_padding="mask"`` mode).
+    ``dedup_neighbors`` gathers each distinct pool row once and expands
+    with the inverse index (``torch.unique``): identical outputs."""
     Xt = data["tokens"][idx]
     yt = data["labels"][idx]
     Xf = data["numeric"][idx] if "numeric" in data else None
@@ -93,10 +130,18 @@ def _gather_batch(data, idx):
     if "nbr_ok" in data:
         ok = data["nbr_ok"][idx]
         nmask = torch.cat([torch.ones_like(ok[:, :1]), ok], dim=1)
-    X = torch.cat([Xt[:, None, :], data["pool_tokens"][nb]], dim=1)
-    y = torch.cat([yt[:, None], data["pool_labels"][nb]], dim=1)
+    if dedup_neighbors:
+        uniq, inverse = torch.unique(nb, return_inverse=True)
+
+        def pool_rows(pool):
+            return pool[uniq][inverse]
+    else:
+        def pool_rows(pool):
+            return pool[nb]
+    X = torch.cat([Xt[:, None, :], pool_rows(data["pool_tokens"])], dim=1)
+    y = torch.cat([yt[:, None], pool_rows(data["pool_labels"])], dim=1)
     if Xf is not None:
-        Xf = torch.cat([Xf[:, None, :], data["pool_numeric"][nb]], dim=1)
+        Xf = torch.cat([Xf[:, None, :], pool_rows(data["pool_numeric"])], dim=1)
     return X, y, Xf, nmask
 
 
@@ -118,8 +163,16 @@ class _ResidentBytes(object):
 
 
 class Trainer(object):
-    def __init__(self, feature_map, params, device=None):
+    def __init__(self, feature_map, params, device=None, mesh=None):
+        """``device``: None means CUDA; ``mesh``: this process's place in a
+        (data, model) mesh (parallel/mesh.py), whose device it runs on."""
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError("device {} is not the mesh's {}".format(
+                    device, mesh.device))
+            device = mesh.device
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.feature_map = feature_map
         self.params = params
         if params.get("neighbor_padding", "wrap") not in ("wrap", "mask"):
@@ -127,12 +180,28 @@ class Trainer(object):
                 "neighbor_padding={!r} is not supported (use 'wrap' for "
                 "reference bug-parity or 'mask' for corrected "
                 "semantics)".format(params["neighbor_padding"]))
-        self.model = build_model(feature_map, params).to(self.device).eval()
+        model = build_model(feature_map, params)
+        #: row-sharded parameter name -> (full rows, first local row); a
+        #: model axis of 1 keeps every table whole and looks it up locally
+        self._sharded = {}
+        if mesh is not None:
+            for name, module in model.named_modules():
+                if mesh.model > 1 and isinstance(module, PackedEmbedding) and \
+                        is_row_sharded(name + ".table", module.table):
+                    rows = module.table.shape[0]
+                    lo, hi = shard_range(rows, mesh.model, mesh.model_index)
+                    module.shard_rows(lo, hi, mesh.model_group)
+                    self._sharded[name + ".table"] = (rows, lo)
+            set_batch_norm_group(model, mesh.data_group)
+        self.model = model.to(self.device).eval()
         # dropout masks come from the Trainer's own generator on the
         # device, so a run is reproducible without the global RNG
         self.dropout_generator = torch.Generator(device=self.device).manual_seed(
             int(params.get("seed", 2021)))
-        set_dropout_generator(self.model, self.dropout_generator)
+        set_dropout_generator(self.model, self.dropout_generator,
+                              None if mesh is None else (mesh.data, mesh.data_index))
+        self._dedup = bool(params.get("dedup_neighbors", False)) or \
+            os.environ.get("RAT_TPU_DEDUP_NEIGHBORS") == "1"
         self._has_numeric = any(spec["type"] == "numeric"
                                 for spec in feature_map.feature_specs.values())
         self.model_id = params.get("model_id", params["model"])
@@ -178,11 +247,24 @@ class Trainer(object):
         seconds."""
         if self._optimizer is None:
             p = self.params
-            self._optimizer = get_optimizer(p.get("optimizer", "adam"),
-                                            self.model.parameters(),
-                                            p.get("learning_rate", 1e-3),
-                                            p.get("max_gradient_norm", 10.))
+            self._optimizer = get_optimizer(
+                p.get("optimizer", "adam"), self.model.parameters(),
+                p.get("learning_rate", 1e-3), p.get("max_gradient_norm", 10.),
+                None if self.mesh is None else self._mesh_grad_sq_norm)
         return self._optimizer
+
+    def _mesh_grad_sq_norm(self, params):
+        """The squared norm of the whole gradient under a mesh: the
+        sharded tables' squares summed over the model group, the
+        replicated parameters' counted once."""
+        sharded = {id(p) for n, p in self.model.named_parameters() if n in self._sharded}
+        zero = torch.zeros((), device=self.device)
+        rows = sum(((p.grad * p.grad).sum() for p in params
+                    if p.grad is not None and id(p) in sharded), zero)
+        if sharded:
+            dist.all_reduce(rows, group=self.mesh.model_group)
+        return sum(((p.grad * p.grad).sum() for p in params
+                    if p.grad is not None and id(p) not in sharded), zero) + rows
 
     def _use_fast_forward(self):
         """The JAX package's gate of its fused path: ``use_pallas``, the
@@ -239,7 +321,7 @@ class Trainer(object):
 
     def _forward(self, data, idx):
         """Gather one batch and run the fused or the module forward."""
-        X, y, Xf, nmask = _gather_batch(data, idx)
+        X, y, Xf, nmask = _gather_batch(data, idx, self._dedup)
         if self._use_fast_forward():
             return rat_m2_fast_forward(self.model, X, y, Xf)
         return self.model(X, y, Xf, nbr_mask=nmask)
@@ -247,23 +329,60 @@ class Trainer(object):
     # ---- training ---------------------------------------------------------
     def loss_and_grads(self, data, idx, valid):
         """Forward and backward of one batch in training mode (idx: [B]
-        device row ids, the first ``valid`` real). The padded rows enter
+        device row ids, the first ``valid`` real; under a mesh the GLOBAL
+        batch, of which this rank runs its slice). The padded rows enter
         BatchNorm's batch statistics, as in the JAX package, but not the
         loss. The gradients of the total loss, regularizer included, are
-        left in each parameter's ``.grad``. Returns the loss as a device
-        scalar."""
+        left in each parameter's ``.grad`` (under a mesh, summed over the
+        data group). Returns the loss as a device scalar."""
         self.model.train()
+        offset = 0
+        if self.mesh is not None:
+            idx = process_local_rows(idx, self.mesh)
+            offset = self.mesh.data_index * len(idx)
         out = self._forward(data, idx)
         pred = out["y_pred"][:, 0]
         target = out["y_true"][:, 0]
-        mask = (torch.arange(pred.shape[0], device=pred.device) < valid).to(pred.dtype)
+        rows = torch.arange(pred.shape[0], device=pred.device) + offset
+        mask = (rows < valid).to(pred.dtype)
         loss = torch.sum(self._loss_fn(pred, target) * mask) / valid
-        loss = loss + regularization_loss(self.model.named_parameters(),
-                                          self._embedding_regularizer,
-                                          self._net_regularizer)
+        if self.mesh is None:
+            loss = loss + regularization_loss(self.model.named_parameters(),
+                                              self._embedding_regularizer,
+                                              self._net_regularizer)
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            return loss.detach()
+        return self._mesh_backward(loss)
+
+    def _mesh_backward(self, data_loss):
+        """Backward of this rank's loss under the mesh, the gradients
+        summed over the data group; returns the global loss."""
+        mesh = self.mesh
+        named = list(self.model.named_parameters())
+        regs = [regularization_loss([(n, p) for n, p in named if
+                                     (n in self._sharded) == sharded],
+                                    self._embedding_regularizer, self._net_regularizer)
+                for sharded in (True, False)]
+        reg = regs[0] + regs[1]
+        loss = data_loss + (reg if mesh.data_index == 0 else reg * 0.0)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        return loss.detach()
+        grads = [p.grad for _, p in named if p.grad is not None]
+        flat = torch.cat([g.reshape(-1) for g in grads])   # one collective
+        dist.all_reduce(flat, group=mesh.data_group)
+        for g, summed in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(summed.view_as(g))
+        # the global loss: the data terms of one model column, the
+        # replicated parameters' regularizer once, each table shard's once
+        report = data_loss.detach() * float(mesh.model_index == 0)
+        if mesh.rank == 0:
+            report = report + regs[1]
+        if mesh.data_index == 0:
+            report = report + regs[0]
+        report = torch.as_tensor(report, device=self.device).detach().clone()
+        dist.all_reduce(report)
+        return report
 
     def train_step(self, data, idx, valid):
         """One step: loss, gradients, clip, Adam. Returns the loss."""
@@ -441,14 +560,31 @@ class Trainer(object):
         block); returns host (y_pred, y_true) float32."""
         training = self.model.training
         self.model.eval()
-        preds, trues = [], []
+        preds, trues, valids = [], [], []
         for split_data, idx, valid in self._eval_stream(data_gen, data):
-            out = self._forward(split_data, torch.from_numpy(idx).to(self.device))
+            idx = torch.from_numpy(idx).to(self.device)
+            valids.append(valid)
+            if self.mesh is not None:
+                idx, valid = process_local_rows(idx, self.mesh), None
+            out = self._forward(split_data, idx)
             del split_data
             preds.append(out["y_pred"][:valid, 0])
             trues.append(out["y_true"][:valid, 0])
         self.model.train(training)
-        return torch.cat(preds).cpu().numpy(), torch.cat(trues).cpu().numpy()
+        if self.mesh is None:
+            return torch.cat(preds).cpu().numpy(), torch.cat(trues).cpu().numpy()
+        return self._gather_predictions(preds, trues, valids)
+
+    def _gather_predictions(self, preds, trues, valids):
+        """Every data rank's [per] slices of each batch, all-gathered in
+        row order over the data group and cut to each batch's valid
+        rows; the same host arrays on every rank."""
+        local = torch.stack([torch.stack(preds), torch.stack(trues)])   # [2, nb, per]
+        parts = [torch.empty_like(local) for _ in range(self.mesh.data)]
+        dist.all_gather(parts, local, group=self.mesh.data_group)
+        full = torch.cat(parts, dim=2).cpu().numpy()                    # [2, nb, B]
+        return tuple(np.concatenate([row[b, :v] for b, v in enumerate(valids)])
+                     for row in full)
 
     def evaluate(self, data_gen, data=None):
         y_pred, y_true = self._eval_collect(data_gen, data)
@@ -461,16 +597,79 @@ class Trainer(object):
         return y_pred.astype(np.float64)
 
     def count_parameters(self, count_embedding=True):
-        total = sum(p.numel() for name, p in self.model.named_parameters()
+        """The parameters of the whole model (sharded tables at their full
+        rows)."""
+        total = sum(p.numel() // max(p.shape[0], 1) * self._sharded[name][0]
+                    if name in self._sharded else p.numel()
+                    for name, p in self.model.named_parameters()
                     if count_embedding or "embedding" not in name)
         logging.info("Total number of parameters: {}.".format(total))
         return total
+
+    # ---- sharded tables <-> one device's state ---------------------------
+    def _gather_rows(self, local, rows):
+        """A sharded table's (or moment's) full [rows, ...] tensor from the
+        model group's parts (each padded to ceil(rows / model))."""
+        per = -(-rows // self.mesh.model)
+        padded = local.new_zeros((per,) + tuple(local.shape[1:]))
+        padded[:len(local)] = local
+        parts = [torch.empty_like(padded) for _ in range(self.mesh.model)]
+        dist.all_gather(parts, padded, group=self.mesh.model_group)
+        return torch.cat(parts)[:rows]
+
+    def _sharded_slots(self):
+        """(position in parameters(), name, full rows, first row, local
+        shape) of each sharded parameter."""
+        return [(i, n, rows, lo, tuple(p.shape))
+                for i, (n, p) in enumerate(self.model.named_parameters())
+                for rows, lo in [self._sharded.get(n, (None, None))] if rows is not None]
+
+    def model_state(self):
+        """The state dict one device holds: under a mesh, the sharded
+        tables gathered over the model group (every rank must call it)."""
+        state = self.model.state_dict()
+        for _, name, rows, _, _ in self._sharded_slots():
+            state[name] = self._gather_rows(state[name], rows)
+        return state
+
+    def load_model_state(self, state):
+        """Load one device's state dict (a checkpoint, or
+        convert.params_from_jax's); under a mesh every rank keeps its
+        rows of the sharded tables."""
+        state = dict(state)
+        for _, name, _, lo, shape in self._sharded_slots():
+            state[name] = state[name][lo: lo + shape[0]]
+        self.model.load_state_dict(state)
+
+    def _optimizer_state(self):
+        """The optimizer's state dict as one device holds it: the
+        moments of the sharded tables gathered like the tables."""
+        state = self.optimizer.state_dict()
+        for i, _, rows, _, shape in self._sharded_slots():
+            if i not in state["state"]:
+                continue
+            # state_dict() shares the live per-parameter dicts: copy
+            slot = state["state"][i] = dict(state["state"][i])
+            for key, value in slot.items():
+                if torch.is_tensor(value) and tuple(value.shape) == shape:
+                    slot[key] = self._gather_rows(value, rows)
+        return state
+
+    def _load_optimizer_state(self, state):
+        for i, _, rows, lo, shape in self._sharded_slots():
+            slot = state["state"].get(i, {})
+            for key, value in slot.items():
+                if torch.is_tensor(value) and value.dim() and value.shape[0] == rows \
+                        and tuple(value.shape[1:]) == shape[1:]:
+                    slot[key] = value[lo: lo + shape[0]]
+        self.optimizer.load_state_dict(state)
 
     # ---- full-state checkpoint/resume ---------------------------------------
     def save_train_state(self, path):
         """Checkpoint the full train state (weights and buffers, Adam's
         moments, step and learning rate) plus the monitor's bookkeeping
-        and the host and dropout RNG states, for an exact resume."""
+        and the host and dropout RNG states, for an exact resume. Under a
+        mesh it is one device's state, written by rank 0."""
         from .checkpoint import save_train_state
         mode, bits, pos, has_gauss, gauss = self._shuffle_rng.get_state()
         extra = {
@@ -480,16 +679,17 @@ class Trainer(object):
             "shuffle_rng": [mode, bits.tolist(), int(pos), int(has_gauss), float(gauss)],
             "dropout_rng": self.dropout_generator.get_state().tolist(),
         }
-        save_train_state(path, self.model.state_dict(), self.optimizer.state_dict(),
-                         extra)
+        model_state, opt_state = self.model_state(), self._optimizer_state()
+        on_rank0(self.mesh, lambda: save_train_state(path, model_state, opt_state, extra))
 
     def restore_train_state(self, path):
         """Load a state saved by :meth:`save_train_state`; the next
         ``fit`` continues its bookkeeping instead of starting afresh."""
         from .checkpoint import restore_train_state
-        state, extra = restore_train_state(path, map_location=self.device)
-        self.model.load_state_dict(state["model"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        state, extra = from_rank0(
+            self.mesh, lambda: restore_train_state(path, map_location="cpu"))
+        self.load_model_state(state["model"])
+        self._load_optimizer_state(state["optimizer"])
         if extra:
             mode, bits, pos, has_gauss, gauss = extra["shuffle_rng"]
             self._shuffle_rng.set_state((mode, np.asarray(bits, dtype=np.uint32),
@@ -501,10 +701,17 @@ class Trainer(object):
         return extra
 
     def save_weights(self, checkpoint):
-        os.makedirs(os.path.dirname(checkpoint), exist_ok=True)
-        torch.save(self.model.state_dict(), checkpoint)
+        """Write one device's state dict (under a mesh, gathered and
+        written by rank 0)."""
+        state = self.model_state()
+
+        def write():
+            os.makedirs(os.path.dirname(checkpoint) or ".", exist_ok=True)
+            torch.save(state, checkpoint)
+        on_rank0(self.mesh, write)
 
     def load_weights(self, checkpoint):
-        state = torch.load(checkpoint, map_location=self.device, weights_only=True)
-        self.model.load_state_dict(state)
+        state = from_rank0(self.mesh, lambda: torch.load(
+            checkpoint, map_location="cpu", weights_only=True))
+        self.load_model_state(state)
         logging.info("Loaded weights from %s", checkpoint)

@@ -24,6 +24,11 @@ pooled. Semantics, as in the JAX package:
 
 Every parameter lives under the module, so its name holds
 "embedding_layer", the key of the embedding regularizer.
+
+Under a mesh the packed table is row-sharded over the model axis
+(:meth:`PackedEmbedding.shard_rows`): each rank keeps a contiguous range
+of rows, and :class:`RowShardedLookup` gathers the ids in that range,
+zeros the others and sums the partial vectors over the model group.
 """
 
 import os
@@ -32,6 +37,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from .initializers import embedding_init, xavier_normal
@@ -174,6 +180,42 @@ def _pool(vecs, mask, encoder):
     raise RuntimeError("sequence encoder={} is not supported.".format(encoder))
 
 
+class RowShardedLookup(torch.autograd.Function):
+    """``apply(table, rows, lo, group)``: ``table[rows]`` (global ids of any
+    shape) for a table row-sharded over the process ``group``, whose rows
+    [lo, lo + len(table)) are this rank's. Forward gathers the rows in range, zeros the rest and sums
+    over ``group`` (each id lies in exactly one rank's range, so the sum
+    adds one vector to zeros, exactly). Every rank of the group holds the
+    same ``rows`` and gets the same gradient of the output, so backward
+    is this rank's rows only, with no collective."""
+
+    @staticmethod
+    def forward(ctx, table, rows, lo, group):
+        local = rows - lo
+        hit = (local >= 0) & (local < table.shape[0])
+        local = torch.where(hit, local, torch.zeros_like(local))
+        if table.shape[0]:
+            out = table[local] * hit[..., None].to(table.dtype)
+        else:
+            out = table.new_zeros(rows.shape + table.shape[1:])
+        dist.all_reduce(out, group=group)
+        ctx.save_for_backward(local, hit)
+        ctx.table_shape = table.shape
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        local, hit = ctx.saved_tensors
+        width = ctx.table_shape[1]
+        grad = (grad * hit[..., None].to(grad.dtype)).reshape(-1, width)
+        # accumulate as autograd does for ``table[rows]``, so that a
+        # one-rank mesh gives the unsharded gradient bit for bit
+        out = grad.new_zeros(ctx.table_shape)
+        if ctx.table_shape[0]:
+            out.index_put_((local.reshape(-1),), grad, accumulate=True)
+        return out, None, None, None
+
+
 class PackedEmbedding(nn.Module):
     """X [..., input_length] (and, with numeric fields, X_numeric, the
     same columns as float values) -> feature embeddings [..., F, d]."""
@@ -207,10 +249,21 @@ class PackedEmbedding(nn.Module):
         for name in ("token_cols", "token_offsets", "token_padding"):
             self.register_buffer(name, torch.from_numpy(getattr(spec, name)),
                                  persistent=False)
+        self.row_shard = None
+
+    def shard_rows(self, lo, hi, group):
+        """Keep rows [lo, hi) of the packed table, the others living on
+        the other ranks of the process ``group``."""
+        self.table = nn.Parameter(self.table.detach()[lo:hi].clone())
+        self.row_shard = (lo, group)
 
     def forward(self, X, X_numeric=None):
         ids_local = X[..., self.token_cols]                             # [..., T]
-        emb = self.table[ids_local + self.token_offsets]                # [..., T, d]
+        rows = ids_local + self.token_offsets
+        if self.row_shard is None:
+            emb = self.table[rows]                                      # [..., T, d]
+        else:
+            emb = RowShardedLookup.apply(self.table, rows, *self.row_shard)
         pad = self.token_padding
         mask = (ids_local != pad) | (pad < 0)
         emb = emb * mask[..., None].to(emb.dtype)

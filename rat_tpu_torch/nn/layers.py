@@ -19,9 +19,18 @@ Every Linear is built with ``xavier_normal`` weights and zero bias from
 the module's ``generator``. Dropout masks come from the generator that
 :func:`set_dropout_generator` gives the model (the global RNG without
 one).
+
+Under a mesh each data rank holds a contiguous slice of the global
+batch. Dropout then draws the GLOBAL batch's mask from the generator,
+which every rank seeds alike, and keeps its own rows: the masks are one
+device's, bit for bit. BatchNorm (:func:`set_batch_norm_group`) takes
+its batch statistics over the data group, as the JAX package's batch
+mean spans the data axis: the training step, running statistics
+included, is the global batch's.
 """
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -65,22 +74,62 @@ class Dropout(nn.Module):
         super().__init__()
         self.p = float(p)
         self.generator = None
+        self.batch_slice = None
 
     def forward(self, x):
         if not self.training or self.p == 0:
             return x
         if self.p >= 1:
             return torch.zeros_like(x)
-        keep = torch.rand(x.shape, generator=self.generator, device=x.device,
+        shape = x.shape
+        if self.batch_slice is not None:
+            # the leading axis is batch-major (a batch, or a batch merged
+            # with the axes after it): this rank's rows are a contiguous
+            # part of the global batch's
+            parts, index = self.batch_slice
+            shape = (shape[0] * parts,) + tuple(shape[1:])
+        keep = torch.rand(shape, generator=self.generator, device=x.device,
                           dtype=x.dtype) < 1 - self.p
+        if self.batch_slice is not None:
+            keep = keep[index * x.shape[0]: (index + 1) * x.shape[0]]
         return torch.where(keep, x / (1 - self.p), torch.zeros_like(x))
 
 
-def set_dropout_generator(module, generator):
-    """Draw every dropout mask under ``module`` from ``generator``."""
+def set_dropout_generator(module, generator, batch_slice=None):
+    """Draw every dropout mask under ``module`` from ``generator``; with
+    ``batch_slice = (parts, index)`` the input is part ``index`` of a
+    batch cut into ``parts`` equal parts, and the mask that part of the
+    whole batch's."""
     for m in module.modules():
         if isinstance(m, Dropout):
             m.generator = generator
+            m.batch_slice = batch_slice
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over a process group; the gradient of every rank's input is
+    the sum of the ranks' output gradients."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def set_batch_norm_group(module, group):
+    """Take the training batch statistics of every BatchNorm under
+    ``module`` over the process ``group`` (equal batch slices)."""
+    for m in module.modules():
+        if isinstance(m, TorchBatchNorm):
+            m.group = group
 
 
 class TorchBatchNorm(nn.Module):
@@ -102,13 +151,20 @@ class TorchBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        self.group = None
 
     def forward(self, x):
         if self.training:
             axes = tuple(range(x.dim() - 1))
-            mean = x.mean(dim=axes)
-            var = torch.square(x - mean).mean(dim=axes)
             n = x.numel() // x.shape[-1]
+            if self.group is None:
+                mean = x.mean(dim=axes)
+                var = torch.square(x - mean).mean(dim=axes)
+            else:
+                n *= dist.get_world_size(self.group)
+                mean = _AllReduceSum.apply(x.sum(dim=axes), self.group) / n
+                var = _AllReduceSum.apply(torch.square(x - mean).sum(dim=axes),
+                                          self.group) / n
             decay = 1.0 - self.momentum
             with torch.no_grad():
                 self.running_mean.copy_(decay * self.running_mean

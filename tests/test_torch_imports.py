@@ -3,7 +3,8 @@ without JAX, the JAX package, or the host packages the GPU machine lacks
 (pandas, h5py, sklearn, yaml): run in a subprocess whose import system
 refuses them. Further subprocesses run the port's CLI end to end, CSV to
 results line, under the same refusal: as published, and with
-``data_block_size`` and ``inter_block_retrieval`` set."""
+``data_block_size`` and ``inter_block_retrieval`` set; and the ranks of
+a 2-rank mesh run the multi-device dry run under it."""
 
 import os
 import subprocess
@@ -58,6 +59,9 @@ import rat_tpu_torch.features
 import rat_tpu_torch.features.datasets
 import rat_tpu_torch.retrieval.similarity
 import rat_tpu_torch.engine.checkpoint
+import rat_tpu_torch.parallel
+import rat_tpu_torch.parallel.dryrun
+import rat_tpu_torch.retrieval.sharded
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not loaded, loaded
 print("ok")
@@ -137,3 +141,19 @@ def test_no_jax_or_rat_tpu_imports_in_port_sources():
                                        "sklearn", "yaml"), (path, line)
                     # h5py only inside the functions that touch .h5 files
                     assert top != "h5py" or line[:1].isspace(), (path, line)
+
+
+def test_mesh_workers_run_without_blocked_packages(tmp_path):
+    """Each rank of a 2-rank gloo world refuses the packages, runs the
+    dry run's worker (a train and an eval step, the checkpoint round
+    trips, the dedup and mask variants on a 1x2 mesh), and has loaded
+    none of them."""
+    from torch_mesh_world import PRELUDE, run_world
+    code = """
+from rat_tpu_torch.parallel.dryrun import _worker
+_worker(2)
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not loaded, loaded
+"""
+    outs = run_world(code, 2, str(tmp_path), prelude=_BLOCK + PRELUDE)
+    assert "mesh={'data': 1, 'model': 2}" in outs[0] and outs[0].strip().endswith("OK")
