@@ -106,12 +106,45 @@ Phases, any failure exits non-zero:
              three columns exact; each call's first batch equal to the
              same call on the CPU bit for bit, no kernel launched.
 
+14. native — the native host encoder (rat_tpu_torch/native): whether
+             the interpreter's Python.h is there, the extension's g++
+             build, then a KKBox-shaped dataset (the port's
+             make_kkbox_like at KKBox's vocabularies, 500,000 / 50,000 /
+             50,000 rows, string ids and a genre sequence as the published
+             config reads them) built twice, with the extension and with
+             the Python encoders: feature_map.json byte-identical and every
+             split equal; each build's seconds by stage. Runs before cli,
+             whose Stage seconds now split the build the same way and whose
+             encoder for ML-Tag's float ids must be python.
+15. bench  — the port's benchmark suite (rat_tpu_torch.cli.benchmark) in
+             this process at cut step counts: train on the ML-Tag shape,
+             plain and fused, on KKBox's and on Tmall's, eval on ML-Tag,
+             BM25 and exact-match retrieval, each bench's kernel launches
+             asserted; the BM25 bench's pool and queries retrieved once
+             more with every K2 call (2048-query batches and the 1,696-
+             query tail, 200,000 rows) held to its plain version exactly;
+             then bench_torch.py's headline (fused path, default
+             steps, with the card's health stamp, which must have no error
+             and no invalid probe) and rat_tpu_torch.ops.bench_kernel (K1
+             against the plain block) as subprocesses. bench_scaling needs
+             two cards and is not run.
+16. autotune — a two-expid sweep (learning_rate 1e-3 and 1e-4 on the
+             demo experiment with use_pallas) enumerated by
+             rat_tpu_torch.autotuner and run by grid_search at once over
+             this card and a CPU slot: both exit 0 with a results line, and
+             the card run's log counts K1 launches. Before the sweep, K2 at
+             its runs' shapes (fold 0, 800 queries x 7,200 rows; valid and
+             test, 2,000 x 8,000) through the retrieval engine and K1 at
+             B=1024 (whole, and padded as the last train and valid
+             batches are) are held to their plain versions.
+
 The line before the last is the kernel table as JSON; the last line
 says the run was ok, and names the device. Without CUDA the script
 exits non-zero before printing either.
 """
 
 import argparse
+import contextlib
 import ctypes
 import glob
 import json
@@ -127,11 +160,15 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from rat_tpu_torch import autotuner
+from rat_tpu_torch import native as native_ext
+from rat_tpu_torch.cli import benchmark
+from rat_tpu_torch.data.build import build_dataset
 from rat_tpu_torch.data.loader import DataGenerator, retrieval_cache_path
-from rat_tpu_torch.data.synthetic import make_mltag_like
+from rat_tpu_torch.data.synthetic import make_kkbox_like, make_mltag_like
 from rat_tpu_torch.engine import Trainer
 from rat_tpu_torch.engine.trainer import _gather_batch
-from rat_tpu_torch.features import FeatureMap
+from rat_tpu_torch.features import FeatureEncoder, FeatureMap, preprocess
 from rat_tpu_torch.models import build_model
 from rat_tpu_torch.ops import _build
 from rat_tpu_torch.ops import bm25_score_chunk as k3
@@ -141,6 +178,9 @@ from rat_tpu_torch.parallel import initialize_distributed, make_mesh
 from rat_tpu_torch.parallel.distributed import free_port
 from rat_tpu_torch.parallel.dryrun import local_leaves, one_step
 from rat_tpu_torch.retrieval import bm25, sharded
+from rat_tpu_torch.utils import load_config
+from rat_tpu_torch.utils.yaml_subset import dump as yaml_dump
+from rat_tpu_torch.utils.yaml_subset import safe_load
 
 # RAT_m2_movielenslatest_x1_10fold_retrieval at its published widths
 # and training settings (configs/RAT_m2/movielenslatest_x1/
@@ -438,6 +478,24 @@ def k1_flops(t, s, d, heads, dim_head, hidden, project_out):
     return ops + 4 * n * d * hidden + 10 * n * hidden
 
 
+def _k1_case(rng, device, B, t, s, d, heads, dim_head, hidden=None, valid=None):
+    """K1 and its plain version on one random block input [B, t, s, d]
+    with random weights (hidden 4d unless given); with ``valid``, rows
+    from ``valid`` on repeat row 0, as a padded last batch does. Returns
+    (within rtol 1e-4 / atol 1e-5, |error|, x, weights, project_out)."""
+    project_out = not (heads == 1 and dim_head == d)
+    p = _k1_weights(rng, d, heads, dim_head, hidden or 4 * d, project_out, device)
+    x = torch.from_numpy(rng.randn(B, t, s, d).astype(np.float32)).to(device)
+    if valid is not None:
+        x[valid:] = x[0]
+    got = k1.cross_intra_block(x, p, heads, dim_head, project_out)
+    want = k1.cross_intra_block_reference(x, p, heads, dim_head, project_out)
+    if x.is_cuda:
+        torch.cuda.synchronize()
+    err = (got - want).abs()
+    return bool((err <= 1e-5 + 1e-4 * want.abs()).all()), err, x, p, project_out
+
+
 def check_k1(rng, device):
     """K1 against its plain version; returns the table entry."""
     shapes = [("mltag", 4096, 6, 4, 10, 2, 10), ("mltag_b4093", 4093, 6, 4, 10, 2, 10),
@@ -449,15 +507,8 @@ def check_k1(rng, device):
     timed = None
     ms_by_shape, bounds = {}, {}
     for name, B, t, s, d, heads, dim_head in shapes:
-        project_out = not (heads == 1 and dim_head == d)
+        ok, err, x, p, project_out = _k1_case(rng, device, B, t, s, d, heads, dim_head)
         hidden = 4 * d
-        p = _k1_weights(rng, d, heads, dim_head, hidden, project_out, device)
-        x = torch.from_numpy(rng.randn(B, t, s, d).astype(np.float32)).to(device)
-        got = k1.cross_intra_block(x, p, heads, dim_head, project_out)
-        want = k1.cross_intra_block_reference(x, p, heads, dim_head, project_out)
-        torch.cuda.synchronize()
-        err = (got - want).abs()
-        ok = bool((err <= 1e-5 + 1e-4 * want.abs()).all())
         if ok:
             ms_by_shape[name] = _kernel_ms(
                 lambda: k1.cross_intra_block(x, p, heads, dim_head, project_out), 20,
@@ -520,6 +571,33 @@ def _k2_case(db, qry, K, device, pad4=False):
     torch.cuda.synchronize()
     same = all(torch.equal(a, b) for a, b in zip(got, want))
     return same, (q, idf, db_T, N, K)
+
+
+@contextlib.contextmanager
+def k2_held_to_plain(phase):
+    """Inside, every K2 call of the retrieval engine also runs K2's plain
+    version on the same inputs, and the two must be equal after the
+    zero-score drop (values, indices and counts, ties included). Yields
+    {queries in the call: calls compared}. These plain runs launch no
+    kernel, and the comparison adds no launch to K2's count."""
+    kernel = bm25.bm25_topk
+    compared = {}
+
+    def both(qry, qry_idf, db_T, db_valid_len, topk):
+        v, i = kernel(qry, qry_idf, db_T, db_valid_len, topk)
+        want = bm25._finalize(*k2.bm25_topk_reference(qry, qry_idf, db_T, db_valid_len,
+                                                      topk), False)
+        if not all(torch.equal(a, b) for a, b in zip(bm25._finalize(v, i, False), want)):
+            raise AssertionError("{}: K2 differs from its plain version at {} queries x "
+                                 "{} rows".format(phase, len(qry), db_valid_len))
+        compared[len(qry)] = compared.get(len(qry), 0) + 1
+        return v, i
+
+    bm25.bm25_topk = both
+    try:
+        yield compared
+    finally:
+        bm25.bm25_topk = kernel
 
 
 def _k2_times(q, idf, db_T, N, K):
@@ -1443,6 +1521,13 @@ def cli(device, seed, work_dir, rows=MLTAG_SPLIT_ROWS, ids=MLTAG_IDS, epochs=2,
     data_dir = os.path.join(data_root, dataset_id)
     if "build" not in stages or "build" in stages2 or "Fit feature encoder" in log2:
         raise AssertionError("cli: the first run must build the dataset, the second not")
+    encoders = [json.loads(line.split("Host encoder: ", 1)[1])
+                for line in (log + log2).splitlines() if "Host encoder: " in line]
+    # ML-Tag's id columns are floats: the native encoder takes only string
+    # vocabularies, as in the JAX package
+    if encoders != [{"category": "python"}]:
+        raise AssertionError("cli: host encoders {}, expected one build with python "
+                             "for the float categories".format(encoders))
     if "fold retrieval: process" not in log or "fold retrieval: process" in log2:
         raise AssertionError("cli: the first run must retrieve, the second read caches")
     with open(os.path.join(model_root, dataset_id, MLTAG_EXPID + ".csv")) as fh:
@@ -1484,6 +1569,9 @@ def cli(device, seed, work_dir, rows=MLTAG_SPLIT_ROWS, ids=MLTAG_IDS, epochs=2,
             [launches, launches2], expected))
     return {"rows": list(rows), "vocab": vocab, "epochs": n_epochs,
             "csv_write_s": csv_s, "build_s": stages["build"],
+            "build_split_s": {k: stages["build_" + k] for k in
+                              ("csv_read", "fit", "transform", "npy_write")},
+            "host_encoder": encoders[0],
             "train_retrieval_s": stages["train_retrieval"],
             "valid_retrieval_s": stages["valid_retrieval"],
             "test_retrieval_s": stages["test_retrieval"],
@@ -1708,6 +1796,309 @@ def exact_match(device, seed, pool, test, uniform_pool, uniform_test):
     return out
 
 
+# KKBox-shaped CSVs for the native phase: the port's make_kkbox_like
+# (user, song, a '|'-separated genre sequence) at KKBox's vocabularies,
+# with rows cut for chip time (the real split: 5,901,932 / 737,743 /
+# 737,743 rows). The schema is the published config's for these columns
+# (configs/RAT_m2/kkbox_x1/dataset_config.yaml): string ids, a genre
+# sequence of 3 with MaskedSumPooling, min_categr_count 10.
+NATIVE_ROWS = (500_000, 50_000, 50_000)
+
+
+def native_dataset_params(csv_dir, data_root):
+    return {
+        "dataset_id": "kkbox_like_native", "data_root": data_root, "data_format": "csv",
+        "feature_cols": [
+            {"active": True, "dtype": "str", "name": ["msno", "song_id"],
+             "type": "categorical"},
+            {"active": True, "dtype": "str", "encoder": "MaskedSumPooling", "max_len": 3,
+             "name": "genre_ids", "type": "sequence", "splitter": "|"}],
+        "label_col": {"dtype": "float", "name": "label"}, "min_categr_count": 10,
+        "train_data": os.path.join(csv_dir, "train.csv"),
+        "valid_data": os.path.join(csv_dir, "valid.csv"),
+        "test_data": os.path.join(csv_dir, "test.csv")}
+
+
+def _build_kkbox_like(params):
+    """Build the dataset in-process; returns (the build's stage seconds
+    with its total, the encoders that ran)."""
+    preprocess.reset_encoders_run()
+    t0 = time.perf_counter()
+    seconds = build_dataset(FeatureEncoder(**params), **params)
+    seconds["total"] = time.perf_counter() - t0
+    return seconds, preprocess.encoders_run()
+
+
+def native(seed, work_dir, rows=NATIVE_ROWS, vocab=None, min_rows=None):
+    """The native host encoder (rat_tpu_torch/native): whether the
+    interpreter's Python.h is there, the extension's build, then one
+    KKBox-shaped dataset built twice from the same CSVs, with the
+    extension (columns of ``min_rows`` rows or more, the package's
+    threshold by default) and with the Python encoders (the threshold
+    raised in-process). feature_map.json must be byte-identical and every
+    split array-equal. No kernel runs here. Returns a dict of results."""
+    header = native_ext.python_header()
+    print("native: Python.h {} at {}".format(
+        "present" if os.path.exists(header) else "MISSING", header))
+    if not os.path.exists(header):
+        print("native: no Python.h at {}: the extension cannot build; the Python "
+              "encoders run".format(header))
+        return {"python_h": False, "header": header}
+    t0 = time.perf_counter()
+    if not native_ext.build():
+        raise AssertionError("native: Python.h is there but the extension did not build")
+    build_s = time.perf_counter() - t0
+    vocab = vocab or {"n_users": KKBOX_VOCAB["msno"], "n_songs": KKBOX_VOCAB["song_id"],
+                      "n_genres": KKBOX_VOCAB["genre_ids"]}
+    csv_dir = os.path.join(work_dir, "kkbox_csv")
+    t0 = time.perf_counter()
+    make_kkbox_like(csv_dir, n_train=rows[0], n_valid=rows[1], n_test=rows[2],
+                    seed=seed, **vocab)
+    csv_s = time.perf_counter() - t0
+    default_min = preprocess._NATIVE_MIN_ROWS
+    runs = {}
+    try:
+        for name, threshold in (("native", default_min if min_rows is None else min_rows),
+                                ("python", 10 ** 12)):
+            preprocess._NATIVE_MIN_ROWS = threshold
+            params = native_dataset_params(csv_dir, os.path.join(work_dir, name))
+            runs[name] = _build_kkbox_like(params)
+    finally:
+        preprocess._NATIVE_MIN_ROWS = default_min
+    expected = {"native": {"category": "native", "count_tokens": "native",
+                           "sequence": "native"},
+                "python": {"category": "python", "count_tokens": "python",
+                           "sequence": "python"}}
+    for name, (_, ran) in runs.items():
+        if ran != expected[name]:
+            raise AssertionError("native: the {} build ran the encoders {}".format(name, ran))
+    dirs = [os.path.join(work_dir, name, "kkbox_like_native") for name in runs]
+    with open(os.path.join(dirs[0], "feature_map.json"), "rb") as fa, \
+            open(os.path.join(dirs[1], "feature_map.json"), "rb") as fb:
+        if fa.read() != fb.read():
+            raise AssertionError("native: feature_map.json differs between the builds")
+    for split in ("train", "valid", "test"):
+        a, b = (np.load(os.path.join(d, split + ".npy")) for d in dirs)
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError("native: the {} split differs between the builds".format(
+                split))
+    return {"python_h": True, "header": header, "extension_build_s": build_s,
+            "rows": list(rows), "csv_write_s": csv_s,
+            "native_build_s": runs["native"][0], "python_build_s": runs["python"][0],
+            "feature_map_identical": True, "splits_equal": True}
+
+
+# the train benches' steps in this script, cut for chip time (the
+# defaults, which bench_torch.py's headline runs: 64 warm-up steps and
+# windows of 512; bench_torch.py's KKBox and Tmall lines: windows of 256)
+BENCH_STEPS = {"mltag": {"warmup": 16, "steps": 64}, "kkbox": {"warmup": 4, "steps": 8},
+               "tmall": {"warmup": 4, "steps": 8}}
+
+
+def bench(device, batch_size=4096, n_rows=200_000, steps=BENCH_STEPS, eval_steps=100,
+          retrieval_rows=(200_000, 100_000)):
+    """The port's benchmark suite in-process (rat_tpu_torch.cli.benchmark)
+    at ``steps`` (warm-up, window) per shape: train on ML-Tag plain and
+    fused, on KKBox and on Tmall, eval on ML-Tag, BM25 retrieval and
+    exact-match retrieval, each bench's launches asserted from the code;
+    then, on a card, ``bench_torch.py`` (the headline with its health
+    stamp, fused path) and ``python -m rat_tpu_torch.ops.bench_kernel``
+    as subprocesses. The retrieval bench's pool and queries are then
+    retrieved once more with every K2 call held to its plain version.
+    Returns (the lines, the launches of the in-process benches, the K2
+    calls compared by their query count)."""
+    cuda = torch.device(device).type == "cuda"
+    depth = benchmark.SHAPES["mltag"]["model"]["depth"]
+    n_db, n_qry = retrieval_rows
+    def train(use_pallas, shape):
+        return lambda: benchmark.bench_train(use_pallas, shape=shape, batch_size=batch_size,
+                                             n_rows=n_rows, device=device, **steps[shape])
+
+    fused_k1 = depth * (steps["mltag"]["warmup"] + 3 * steps["mltag"]["steps"])
+    # (name, bench, K1 launches, K2 launches) on a card: K1 only on the
+    # fused ML-Tag path (the KKBox and Tmall shapes have BatchNorm, which
+    # closes the fused gate, and the eval bench runs the module path, as
+    # in the JAX package); K2 once per 2048-query batch in each of the
+    # retrieval bench's two calls; exact match scans in plain PyTorch
+    runs = [("train mltag", train(False, "mltag"), 0, 0),
+            ("train_pallas mltag", train(True, "mltag"), fused_k1, 0),
+            ("train kkbox", train(False, "kkbox"), 0, 0),
+            ("train tmall", train(False, "tmall"), 0, 0),
+            ("eval mltag", lambda: benchmark.bench_eval(
+                eval_steps, "mltag", batch_size, n_rows, device), 0, 0),
+            ("retrieval", lambda: benchmark.bench_retrieval(n_db, n_qry, device=device),
+             0, 2 * -(-n_qry // 2048)),
+            ("retrieval_exm", lambda: benchmark.bench_retrieval_exm(
+                n_db, n_qry, device=device), 0, 0)]
+    lines, launches = {}, {"cross_intra_block": 0, "bm25_topk": 0, "bm25_score_chunk": 0}
+    for name, fn, want_k1, want_k2 in runs:
+        k1.launches = k2.launches = k3.launches = 0
+        t0 = time.perf_counter()
+        line = fn()
+        got = {"cross_intra_block": k1.launches, "bm25_topk": k2.launches,
+               "bm25_score_chunk": k3.launches}
+        want = {"cross_intra_block": want_k1 if cuda else 0,
+                "bm25_topk": want_k2 if cuda else 0, "bm25_score_chunk": 0}
+        if got != want:
+            raise AssertionError("bench {}: launches {} against {}".format(name, got, want))
+        line["seconds"] = time.perf_counter() - t0
+        lines[name] = line
+        launches = {k: launches[k] + got[k] for k in launches}
+        print("bench {}: {}".format(name, json.dumps(line)))
+    # the retrieval bench's own pool and queries once more, every K2 call
+    # (2048-query batches and the tail) held to the plain scan
+    db, q = benchmark.retrieval_arrays(n_db, n_qry)
+    with k2_held_to_plain("bench retrieval") as compared:
+        bm25.bm25_topk_retrieval(db, q, topK=5, device=device, **benchmark.RETRIEVAL_KW)
+    print("bench retrieval: K2 equal to its plain version in every call, {} pool rows, "
+          "calls by queries {}".format(n_db, json.dumps(compared)))
+    if not cuda:
+        return lines, launches, compared
+    env = dict(os.environ, RAT_TPU_BENCH_HEADLINE_ONLY="1", RAT_TPU_BENCH_PALLAS="1",
+               PYTHONPATH=os.pathsep.join([REPO] + [p for p in [os.environ.get(
+                   "PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, os.path.join(REPO, "bench_torch.py")], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError("bench_torch.py exited {}:\n{}".format(out.returncode,
+                                                                   out.stderr[-3000:]))
+    headline = json.loads([l for l in out.stdout.splitlines() if l.startswith("{")][-1])
+    health = headline["chip_health"]
+    if "error" in health or not health.get("probe_valid"):
+        raise AssertionError("bench_torch.py: the health stamp failed: {}".format(health))
+    headline["command_s"] = time.perf_counter() - t0
+    lines["bench_torch.py headline"] = headline
+    print("bench bench_torch.py headline (fused path, default steps): "
+          + json.dumps(headline))
+    out = subprocess.run([sys.executable, "-m", "rat_tpu_torch.ops.bench_kernel"],
+                         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise AssertionError("bench_kernel exited {}:\n{}".format(out.returncode,
+                                                                 out.stderr[-3000:]))
+    print("bench bench_kernel: " + " | ".join(out.stdout.strip().splitlines()))
+    m = re.search(r"max diff: (\S+) \(largest \|output\| (\S+)\)", out.stdout)
+    diff, largest = float(m.group(1)), float(m.group(2))
+    if not diff <= 1e-5 + 1e-4 * largest:
+        raise AssertionError("bench_kernel: K1 differs from the plain block by {}".format(
+            diff))
+    lines["bench_kernel"] = out.stdout.strip().splitlines()
+    return lines, launches, compared
+
+
+def autotune_kernel_checks(params, device, seed):
+    """K1 and K2 at the sweep runs' shapes, each held to its plain
+    version, on the sweep's built dataset: K2 through the retrieval
+    engine as the runs call it (fold 0 of the X-fold self-retrieval, the
+    valid and test splits against the train pool), K1 at the batch size
+    on random inputs and weights, whole and as the last train and valid
+    batches pad it (rtol 1e-4 / atol 1e-5). Returns what was compared."""
+    data_dir = os.path.join(params["data_root"], params["dataset_id"])
+    with open(os.path.join(data_dir, "feature_map.json")) as fh:
+        specs = json.load(fh)["feature_specs"]
+    rc = params["retrieval_configs"]
+    used = [specs[c]["index"] for c in rc["used_cols"]]
+    splits = {name: np.load(os.path.join(data_dir, name + ".npy"))[:, used].astype(np.int64)
+              for name in ("train", "valid", "test")}
+    train, fold = splits["train"], _fold_size(len(splits["train"]), rc)
+    kw = dict(qry_batch_size=rc["qry_batch_size"], db_chunk_size=rc["db_chunk_size"],
+              topK=rc["topK"], device=device)
+    with k2_held_to_plain("autotune") as compared:
+        bm25.bm25_topk_retrieval(train[fold:], train[:fold], **kw)
+        for name in ("valid", "test"):
+            bm25.bm25_topk_retrieval(train, splits[name], **kw)
+    B, d = params["batch_size"], params["embedding_dim"]
+    rng = np.random.RandomState(seed)
+    k1_err = {}
+    for name, valid in (("whole", None), ("last train", len(train) % B or None),
+                        ("last valid", len(splits["valid"]) % B or None)):
+        ok, err, *_ = _k1_case(rng, device, B, 1 + rc["topK"], len(specs) + 1, d,
+                               params["num_heads"], params["dim_head"],
+                               hidden=params["scale_dim"] * d, valid=valid)
+        if not ok:
+            raise AssertionError("autotune: K1 differs from its plain version at B={} "
+                                 "({} batch)".format(B, name))
+        k1_err["{} ({} real rows)".format(name, valid or B)] = err.max().item()
+    return {"k2_pool_rows": [len(train) - fold, len(train)],
+            "k2_calls_by_queries": compared, "k1_batch": B, "k1_max_abs_err": k1_err}
+
+
+def autotune(device, seed, work_dir, rows=(8000, 2000, 2000), epochs=2):
+    """A sweep as a user runs one (rat_tpu_torch.autotuner): a tuner file
+    over the demo experiment (configs/demo, RAT_m2 at d=10, depth 2, with
+    ``use_pallas: true``) on make_mltag_like CSVs, ``learning_rate: [1e-3,
+    1e-4]``, enumerated into two expids and run by ``grid_search`` over
+    the slots [this card, {"RAT_TPU_PLATFORM": "cpu"}] (on the CPU: [-1,
+    the same]) at once. The dataset is built once beforehand, so that the
+    two runs only read it, and K1 and K2 are first held to their plain
+    versions at the runs' shapes. Checks: exit code 0 and one results
+    line for each expid, kernel launches in the card run's log. Returns
+    (results, the card run's launches)."""
+    cuda = torch.device(device).type == "cuda"
+    csv_dir = os.path.join(work_dir, "csv")
+    make_mltag_like(csv_dir, n_train=rows[0], n_valid=rows[1], n_test=rows[2], seed=seed)
+    demo = os.path.join(REPO, "configs", "demo")
+    expid = "RAT_m2_demo_10fold_retrieval"
+    with open(os.path.join(demo, "model_config.yaml")) as fh:
+        models = safe_load(fh)
+    with open(os.path.join(demo, "dataset_config.yaml")) as fh:
+        dataset = safe_load(fh)["demo_10fold_retrieval"]
+    dataset.update(data_root=os.path.join(work_dir, "data") + "/",
+                   **{s + "_data": os.path.join(csv_dir, s + ".csv")
+                      for s in ("train", "valid", "test")})
+    tuner = {"base_expid": expid,
+             "model_config": {
+                 "Base": dict(models["Base"], model_root=os.path.join(work_dir, "exps") + "/"),
+                 expid: dict(models[expid], epochs=epochs, use_pallas=True)},
+             "dataset_config": {"demo_10fold_retrieval": dataset},
+             "tuner_space": {"learning_rate": [1e-3, 1e-4]}}
+    tuner_file = os.path.join(work_dir, "sweep.yaml")
+    with open(tuner_file, "w") as fh:
+        fh.write(yaml_dump(tuner))
+    config_dir = autotuner.enumerate_params(tuner_file)
+    expids = autotuner.load_experiment_ids(config_dir)
+    params = load_config(config_dir, expids[0])
+    build_dataset(FeatureEncoder(**params), **params)
+    checks = autotune_kernel_checks(params, device, seed)
+    print("autotune: K1 and K2 equal to their plain versions at the runs' shapes: "
+          + json.dumps(checks))
+
+    gpu = (torch.device(device).index or 0) if cuda else -1
+    slots = [gpu, {"RAT_TPU_PLATFORM": "cpu", "OMP_NUM_THREADS": "2"}]
+    saved = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = os.pathsep.join([REPO] + [p for p in [saved] if p])
+    t0 = time.perf_counter()
+    try:
+        rcs = autotuner.grid_search("torch", config_dir, slots)
+    finally:
+        if saved is None:
+            del os.environ["PYTHONPATH"]
+        else:
+            os.environ["PYTHONPATH"] = saved
+    seconds = time.perf_counter() - t0
+    out = {"expids": expids, "slots": [str(s) for s in slots], "exit_codes": rcs,
+           "sweep_s": seconds, "results": {}, "launches": {}, "kernel_checks": checks}
+    if any(rcs.values()):
+        raise AssertionError("autotune: runs exited {}".format(rcs))
+    model_dir = os.path.join(work_dir, "exps", params["dataset_id"])
+    for run in expids:
+        with open(os.path.join(model_dir, run + ".csv")) as fh:
+            lines = fh.read().splitlines()
+        if len(lines) != 1 or "[exp_id] {},".format(run) not in lines[0]:
+            raise AssertionError("autotune: results of {}: {}".format(run, lines))
+        with open(os.path.join(model_dir, run + ".log")) as fh:
+            found = [l for l in fh.read().splitlines() if "Kernel launches: " in l]
+        out["results"][run] = _results_metrics(lines[0])
+        out["launches"][run] = json.loads(found[-1].split("Kernel launches: ", 1)[1])
+    card = out["launches"][expids[0]]
+    if cuda and not card["cross_intra_block"] > 0:
+        raise AssertionError("autotune: the card run launched no K1: {}".format(card))
+    if any(out["launches"][expids[1]].values()) or (not cuda and any(card.values())):
+        raise AssertionError("autotune: a CPU run counted launches {}".format(
+            out["launches"]))
+    return out, card
+
+
 def _ptxas_report(name):
     """{kernel (mangled): (registers, bytes of spill stores)} from
     ptxas's report of csrc/<name>.cu."""
@@ -1861,6 +2252,14 @@ def main(argv=None):
         raise AssertionError("K3 was launched on a path")
 
     with tempfile.TemporaryDirectory() as work_dir:
+        t0 = time.perf_counter()
+        res = native(args.seed, work_dir)
+        print("native: " + json.dumps(res))
+        if res["python_h"]:
+            for name in ("native", "python"):
+                print("native {} build seconds: {}".format(
+                    name, json.dumps(res[name + "_build_s"])))
+        print("native phase: {:.1f} s".format(time.perf_counter() - t0))
         res = cli(device, args.seed, work_dir)
         cli_launches = res.pop("launches")
         print("cli: " + json.dumps(res))
@@ -1893,12 +2292,30 @@ def main(argv=None):
         raise AssertionError("exact_match: kernels launched {}".format(exm_launches))
     print("exact_match launches (asserted 0: the window scan is plain PyTorch): "
           + json.dumps(exm_launches))
+
+    t0 = time.perf_counter()
+    print("bench: in-process steps (warm-up, window) {}; eval 100 steps; retrieval "
+          "200,000 pool rows x 100,000 queries".format(json.dumps(BENCH_STEPS)))
+    _, bench_launches, _ = bench(device)
+    print("bench launches (asserted per bench: K1 = depth x (warm-up + 3 x window) on "
+          "the fused ML-Tag path, else 0; K2 = 2 calls x query batches of 2048 in "
+          "the retrieval bench, else 0): " + json.dumps(bench_launches))
+    print("bench phase: {:.1f} s; bench_scaling not run: it needs at least two "
+          "cards".format(time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work_dir:
+        res, autotune_launches = autotune(device, args.seed, work_dir)
+    print("autotune: " + json.dumps(res))
+    print("autotune launches (the card run's log; asserted K1 > 0): "
+          + json.dumps(autotune_launches))
+    print("autotune phase: {:.1f} s".format(time.perf_counter() - t0))
     by_path = {"serve": serve_launches, "train": train_launches,
                "kkbox_train": kkbox_launches, "variants": variant_launches,
                "cli": cli_launches,
                "blocks": {k: block_launches["a"][k] + block_launches["b"][k]
                           for k in block_launches["a"]},
-               "exact_match": exm_launches, "mesh": mesh_launches}
+               "exact_match": exm_launches, "mesh": mesh_launches,
+               "bench": bench_launches, "autotune": autotune_launches}
     for entry in kernels:
         counts = {path: launches.get(entry["name"], 0)
                   for path, launches in by_path.items()}

@@ -18,6 +18,11 @@ package so each counterpart is easy to find:
 - Hopper kernels           -> rat_tpu_torch.ops (sources in csrc/): K1
                               the fused encoder block (differentiable),
                               K2 BM25 top-K, K3 dense BM25 chunk scores
+- tooling                  -> rat_tpu_torch.autotuner (sweeps),
+                              rat_tpu_torch.cli.benchmark and the root
+                              bench_torch.py, rat_tpu_torch.cli.chip_health
+                              (a GPU stamp), rat_tpu_torch.ops.bench_kernel
+- native host encoder      -> rat_tpu_torch.native (C++, built at first use)
 
 Entry points take ``device=None``, meaning ``"cuda"``; without a CUDA
 device they raise instead of falling back to the CPU. Pass

@@ -30,7 +30,12 @@ retrieval, training and evaluation (``inter_block_retrieval: true`` in
 the retrieval configs retrieves each train block from all the others).
 The last log lines give the bytes of split arrays on the device at
 once, the seconds of each stage (a blocked split's retrieval per
-block) and the launches of each kernel in this run.
+block; a build's ``build_csv_read``, ``build_fit``, ``build_transform``
+and ``build_npy_write`` beside its total ``build``) and the launches of
+each kernel in this run. A run that builds the dataset also logs
+``Host encoder: {...}``: which encoder, ``native`` (the C++ extension
+of rat_tpu_torch/native) or ``python``, encoded the categories, the
+sequences and the token counts.
 """
 
 import argparse
@@ -50,6 +55,7 @@ from ..data import build_dataset, h5_generator
 from ..engine import Trainer
 from ..features import FeatureEncoder, FeatureMap
 from ..features import datasets as dataset_encoders
+from ..features.preprocess import encoders_run, reset_encoders_run
 from ..ops import bm25_score_chunk, bm25_topk, cross_intra_block
 from ..parallel import (from_rank0, initialize_distributed, launch, make_mesh,
                         mesh_axes, on_rank0)
@@ -151,8 +157,14 @@ def run_experiment(config_dir, experiment_id, version="torch", gpu=0,
         built = from_rank0(device_mesh, lambda: os.path.exists(feature_encoder.json_file))
         if not built:
             t0 = time.perf_counter()
-            on_rank0(device_mesh, lambda: build_dataset(feature_encoder, **params))
+            reset_encoders_run()
+            split = {}
+            on_rank0(device_mesh,
+                     lambda: split.update(build_dataset(feature_encoder, **params)))
             stages["build"] = time.perf_counter() - t0
+            stages.update(("build_" + k, v) for k, v in split.items())
+            if rank0:
+                logging.info("Host encoder: " + json.dumps(encoders_run()))
         if built or not rank0:
             feature_encoder.feature_map.load(feature_encoder.json_file)
         params["train_data"] = os.path.join(data_dir, "train*.npy")

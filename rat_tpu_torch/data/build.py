@@ -20,12 +20,18 @@ Semantics, as in the JAX package:
     where retrieval is self-service and no pool artifact is written;
   * write order is train, retrieval_pool, valid, test, each encoded
     array freed before the next so peak memory stays one split.
+
+``build_dataset`` returns the seconds of its four stages: ``csv_read``
+(reading the CSVs and the per-column preprocess hooks), ``fit`` (the
+valid/test and pool carves and the vocabulary fit), ``transform``
+(encoding every split) and ``npy_write``.
 """
 
 import gc
 import logging
 import os
 import re
+import time
 from collections import OrderedDict
 
 import numpy as np
@@ -91,22 +97,25 @@ def _write_encoded(table, data_dir, split, block_rows):
 def build_dataset(feature_encoder, train_data=None, valid_data=None, test_data=None,
                   valid_size=0, test_size=0, split_type="sequential",
                   retrieval_configs=None, **kwargs):
-    """Fit the feature map and encode every CSV split to .npy."""
+    """Fit the feature map and encode every CSV split to .npy. Returns
+    {stage: seconds} for csv_read, fit, transform and npy_write."""
+    seconds = dict.fromkeys(("csv_read", "fit", "transform", "npy_write"), 0.0)
+    t0 = time.perf_counter()
     train_ddf = _read_split(feature_encoder, train_data)
     valid_ddf = _read_split(feature_encoder, valid_data)
     test_ddf = _read_split(feature_encoder, test_data)
-
+    pool_ddf = _read_split(feature_encoder,
+                           (retrieval_configs or {}).get("retrieval_pool_data"))
+    seconds["csv_read"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     if valid_size > 0 or test_size > 0:
         train_ddf, valid_ddf, test_ddf = split_train_test(
             train_ddf, valid_ddf, test_ddf, valid_size, test_size, split_type)
 
     # Fit the encoder and settle where the retrieval pool comes from.
-    pool_ddf = None
     if retrieval_configs is None:
         feature_encoder.fit(train_ddf, **kwargs)
     elif "retrieval_pool_data" in retrieval_configs:
-        pool_ddf = _read_split(feature_encoder,
-                               retrieval_configs["retrieval_pool_data"])
         feature_encoder.fit(csv_table.concat([train_ddf, pool_ddf]), **kwargs)
     else:
         if "pool_ratio" not in retrieval_configs or \
@@ -121,6 +130,8 @@ def build_dataset(feature_encoder, train_data=None, valid_data=None, test_data=N
                 train_ddf=train_ddf,
                 valid_size=1 - retrieval_configs["pool_ratio"],
                 split_type=retrieval_configs["split_type"])
+
+    seconds["fit"] = time.perf_counter() - t0
 
     # N-fold self-retrieval needs no pool artifact on disk.
     keep_pool = (retrieval_configs is not None and
@@ -138,9 +149,14 @@ def build_dataset(feature_encoder, train_data=None, valid_data=None, test_data=N
     block_rows = int(kwargs.get("data_block_size", 0))
     while pending:
         split, ddf = pending.popitem(last=False)
+        t0 = time.perf_counter()
         table = feature_encoder.transform(ddf)
         del ddf
+        t1 = time.perf_counter()
         _write_encoded(table, feature_encoder.data_dir, split, block_rows)
+        seconds["transform"] += t1 - t0
+        seconds["npy_write"] += time.perf_counter() - t1
         del table
         gc.collect()
     logger.info("Encoded all CSV splits to .npy under %s", feature_encoder.data_dir)
+    return seconds

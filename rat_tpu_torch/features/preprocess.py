@@ -11,10 +11,18 @@ The vocabulary rules are the JAX package's:
 
 Tokens keep the type of their column: a ``dtype: float`` id column
 gives float keys (``5.0``, not ``"5"``). Category encoding maps each
-distinct value once (``np.unique``) instead of every row. The JAX
-package's process pool for counting tokens and its native C++ encoder
-are speed-ups with equal outputs and are not ported. The scalers are
-numpy copies of sklearn's ``StandardScaler`` and ``MinMaxScaler``.
+distinct value once (``np.unique``) instead of every row. As in the JAX
+package, columns of ``_NATIVE_MIN_ROWS`` rows or more go through the
+native C++ encoder (rat_tpu_torch/native): its ``encode_category`` for
+string vocabularies only, its ``encode_sequences`` and ``count_tokens``
+for every sequence column, with the Python paths' outputs. Without it,
+tokens are counted in one pass: the JAX package's spawned counting pool
+is left out, since each worker imports torch before it counts and every
+script that builds a dataset would need a ``__main__`` guard (PERF.md).
+``encoders_run()``
+says which encoder ran for each kind of column since the last
+``reset_encoders_run()``. The scalers are numpy copies of sklearn's
+``StandardScaler`` and ``MinMaxScaler``.
 """
 
 import os
@@ -23,7 +31,34 @@ from itertools import chain
 
 import numpy as np
 
+from .. import native
 from .csv_table import is_missing
+
+# only worth building/binding the native encoder above this row count
+_NATIVE_MIN_ROWS = 50_000
+
+_encoders_run = {}
+
+
+def reset_encoders_run():
+    _encoders_run.clear()
+
+
+def encoders_run():
+    """{kind of column work: "native", "python" or "native+python"} since
+    the last reset; kinds: category, sequence, count_tokens."""
+    return {kind: "+".join(sorted(ran)) for kind, ran in sorted(_encoders_run.items())}
+
+
+def _ran(kind, encoder):
+    _encoders_run.setdefault(kind, set()).add(encoder)
+
+
+def _fastenc(n_rows):
+    """The native extension for a column of ``n_rows`` rows, or None."""
+    if n_rows < _NATIVE_MIN_ROWS or not native.build():
+        return None
+    return native.fastenc
 
 
 def count_tokens(texts, splitter):
@@ -86,12 +121,23 @@ class Tokenizer(object):
 
     # ---------------- fitting ----------------
 
+    def _count_sequence_tokens(self, texts):
+        """Token counts and the longest row of a sequence column, through
+        the native counter when the column is long enough, else one pass."""
+        enc = _fastenc(len(texts))
+        if enc is not None:
+            _ran("count_tokens", "native")
+            counts, longest = enc.count_tokens(_clean_text_cells(texts), self._splitter)
+            return Counter(counts), longest
+        _ran("count_tokens", "python")
+        return count_tokens(list(texts), self._splitter)
+
     def fit_on_texts(self, texts, use_padding=False):
         self.use_padding = use_padding
         if self._splitter is None:  # scalar categorical column
             counts = _value_counts(texts)
         else:
-            counts, longest = count_tokens(list(texts), self._splitter)
+            counts, longest = self._count_sequence_tokens(texts)
             if self.max_len == 0:
                 self.max_len = longest
         self.build_vocab(counts)
@@ -118,11 +164,35 @@ class Tokenizer(object):
 
     # ---------------- encoding ----------------
 
+    def _string_vocab(self):
+        """True iff the REAL tokens are strings: the '__OOV__'/'__PAD__'
+        sentinels are always str, so they must not decide (a float
+        column's keys through str() would turn every value OOV)."""
+        for k in self.vocab:
+            if k not in ("__OOV__", "__PAD__"):
+                return isinstance(k, str)
+        return False
+
     def encode_category(self, categories):
+        # the C++ map only pays for string keys, as in the JAX package
+        enc = _fastenc(len(categories)) if self._string_vocab() else None
+        if enc is not None:
+            _ran("category", "native")
+            return np.array(enc.encode_category(list(categories), self.vocab,
+                                                self.oov_token), dtype=np.int64)
+        _ran("category", "python")
         return _map_through(categories, self.vocab, self.oov_token)
 
     def encode_sequence(self, texts):
         pad_id = self.vocab_size - 1
+        enc = _fastenc(len(texts))
+        if enc is not None:
+            _ran("sequence", "native")
+            rows = enc.encode_sequences(
+                _clean_text_cells(texts), self.vocab, self.oov_token, self._splitter,
+                self.max_len, pad_id, self.padding == "pre", self.padding == "pre")
+            return np.array(rows, dtype=np.int32).reshape(len(texts), self.max_len)
+        _ran("sequence", "python")
         tokens = [t.split(self._splitter) if t else []
                   for t in _clean_text_cells(texts)]
         lens = np.fromiter(map(len, tokens), count=len(tokens), dtype=np.int64)

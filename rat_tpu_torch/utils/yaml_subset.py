@@ -18,6 +18,13 @@ Anything else (anchors, aliases, tags, block scalars ``|``/``>``,
 directives, multi-document streams, multi-line plain or quoted scalars,
 complex keys, timestamps, merge keys) raises ``ValueError`` naming the
 line: nothing outside the subset is guessed.
+
+``dump(obj)`` writes dicts, lists and scalars as text that both this
+reader and ``yaml.safe_load`` read back to an equal object: block
+mappings with sorted keys and an indent of 4, lists of scalars as flow
+lists, other lists as block sequences, floats as PyYAML writes them
+(``1.0e-05``), and strings quoted wherever a plain scalar would read
+as something else.
 """
 
 import math
@@ -438,3 +445,101 @@ def safe_load(stream):
     if reader.peek() is not None:
         reader.fail("unexpected content after the document")
     return node
+
+
+_PLAIN_SAFE = re.compile(r"[A-Za-z0-9_./~+-][A-Za-z0-9_./~+ -]*")
+
+
+def _reads_as_itself(value):
+    """Whether ``value`` written plain reads back as the same string."""
+    if not _PLAIN_SAFE.fullmatch(value) or value.endswith(" ") or \
+            value.startswith("- ") or value == "-":
+        return False
+    try:
+        return _Reader("").resolve_plain(value) == value
+    except ValueError:      # a timestamp, or a merge or value key
+        return False
+
+
+def _scalar(value):
+    """One scalar as YAML text that reads back to an equal value."""
+    if value is None:
+        return "null"
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    if isinstance(value, int):
+        return str(int(value))
+    if isinstance(value, float):
+        if math.isnan(value):
+            return ".nan"
+        if math.isinf(value):
+            return ".inf" if value > 0 else "-.inf"
+        text = repr(float(value)).lower()
+        if "." not in text and "e" in text:
+            text = text.replace("e", ".0e", 1)
+        return text
+    if not isinstance(value, str):
+        raise TypeError("cannot write {!r} as YAML".format(value))
+    if _reads_as_itself(value):
+        return value
+    if all(c.isprintable() for c in value):
+        return "'{}'".format(value.replace("'", "''"))
+    out = []
+    for c in value:
+        if c in ('"', "\\"):
+            out.append("\\" + c)
+        elif c in "\n\t":
+            out.append("\\n" if c == "\n" else "\\t")
+        elif c.isprintable():
+            out.append(c)
+        else:
+            out.append("\\x{:02x}".format(ord(c)) if ord(c) < 256
+                       else "\\u{:04x}".format(ord(c)) if ord(c) < 65536
+                       else "\\U{:08x}".format(ord(c)))
+    return '"{}"'.format("".join(out))
+
+
+def _flow(value):
+    """A list of scalars and flow-writable lists on one line, or None."""
+    if isinstance(value, list):
+        items = [_flow(v) for v in value]
+        return None if None in items else "[" + ", ".join(items) + "]"
+    if isinstance(value, dict):
+        return "{}" if not value else None
+    return _scalar(value)
+
+
+def _dump_node(value, indent, lines):
+    """Append the block lines of a dict or list at ``indent``."""
+    pad = " " * indent
+    if isinstance(value, dict):
+        for key in sorted(value, key=lambda k: (str(type(k)), k)):
+            head = pad + _scalar(key) + ":"
+            child = value[key]
+            flow = _flow(child)
+            if flow is not None:
+                lines.append(head + " " + flow)
+            else:
+                lines.append(head)
+                # a sequence stays at its key's indent, as PyYAML writes it
+                _dump_node(child, indent if isinstance(child, list) else indent + 4,
+                           lines)
+        return
+    for item in value:
+        flow = _flow(item)
+        if flow is not None:
+            lines.append(pad + "- " + flow)
+            continue
+        start = len(lines)
+        _dump_node(item, indent + 4, lines)
+        lines[start] = pad + "-   " + lines[start][indent + 4:]
+
+
+def dump(obj):
+    """``obj`` (dicts, lists, str, int, float, bool, None) as YAML text."""
+    flow = _flow(obj)
+    if flow is not None:
+        return flow + "\n"
+    lines = []
+    _dump_node(obj, 0, lines)
+    return "\n".join(lines) + "\n"

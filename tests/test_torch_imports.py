@@ -1,7 +1,8 @@
-"""The port's scoring, training and CLI paths and chip_smoke import
-without JAX, the JAX package, or the host packages the GPU machine lacks
-(pandas, h5py, sklearn, yaml): run in a subprocess whose import system
-refuses them. Further subprocesses run the port's CLI end to end, CSV to
+"""The port's scoring, training and CLI paths, its tooling (autotuner,
+benchmark, health stamp, native encoder, bench_torch.py) and chip_smoke
+import without JAX, the JAX package, or the host packages the GPU
+machine lacks (pandas, h5py, sklearn, yaml): run in a subprocess whose
+import system refuses them, where a sweep is also enumerated. Further subprocesses run the port's CLI end to end, CSV to
 results line, under the same refusal: as published, and with
 ``data_block_size`` and ``inter_block_retrieval`` set; and the ranks of
 a 2-rank mesh run the multi-device dry run under it."""
@@ -62,6 +63,25 @@ import rat_tpu_torch.engine.checkpoint
 import rat_tpu_torch.parallel
 import rat_tpu_torch.parallel.dryrun
 import rat_tpu_torch.retrieval.sharded
+import rat_tpu_torch.autotuner
+import rat_tpu_torch.cli.benchmark
+import rat_tpu_torch.cli.chip_health
+import rat_tpu_torch.native
+import rat_tpu_torch.ops.bench_kernel
+import bench_torch
+# a sweep's enumeration reads and writes its YAML without PyYAML
+import os, tempfile
+from rat_tpu_torch.autotuner import enumerate_params, load_experiment_ids
+from rat_tpu_torch.utils.yaml_subset import dump
+tmp = tempfile.mkdtemp()
+with open(os.path.join(tmp, "sweep.yaml"), "w") as fh:
+    fh.write(dump({"base_expid": "e1",
+                   "model_config": {"e1": {"model": "RAT_m2", "dataset_id": "ds1",
+                                           "learning_rate": 1e-3}},
+                   "dataset_config": {"ds1": {"data_format": "csv"}},
+                   "tuner_space": {"learning_rate": [1e-3, 1e-4]}}))
+ids = load_experiment_ids(enumerate_params(os.path.join(tmp, "sweep.yaml")))
+assert len(ids) == 2 and all(i.startswith("e1_00") for i in ids), ids
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not loaded, loaded
 print("ok")
@@ -125,10 +145,11 @@ def test_blocked_cli_runs_end_to_end_without_blocked_packages(tmp_path):
 
 
 def test_no_jax_or_rat_tpu_imports_in_port_sources():
-    """Textual check of every module of the port and chip_smoke.py:
-    none imports JAX, the JAX package, pandas, sklearn or PyYAML, and
-    none imports h5py at module level."""
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    """Textual check of every module of the port, chip_smoke.py and the
+    port's root scripts: none imports JAX, the JAX package, pandas,
+    sklearn or PyYAML, and none imports h5py at module level."""
+    files = [os.path.join(REPO, name) for name in
+             ("chip_smoke.py", "bench_torch.py", "run_expid_torch.py")]
     for root, _, names in os.walk(os.path.join(REPO, "rat_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     for path in files:
