@@ -137,6 +137,17 @@ Phases, any failure exits non-zero:
              test, 2,000 x 8,000) through the retrieval engine and K1 at
              B=1024 (whole, and padded as the last train and valid
              batches are) are held to their plain versions.
+17. nnlib — the NN library off the main path (rat_tpu_torch.nn's
+             interaction, target-attention, APG and MLP-block, graph and v2
+             feature-embedding layers, FM, the merged embedding and PET's
+             graphs) at the KKBox config's widths: 13 fields, d=40, 4096
+             groups of 1+K = 6 rows of the KKBox map's 17 id columns, DNN
+             400^3. Each layer runs forward and backward on the card and on
+             the CPU with the same weights and inputs: outputs within rtol
+             1e-4 / atol 1e-5, parameter and input gradients within rtol
+             2e-3 / atol 1e-4; ms per forward+backward (CUDA events) and the
+             peak of max_memory_allocated; one ``nnlib:`` line per family.
+             No kernel is launched (asserted).
 
 The line before the last is the kernel table as JSON; the last line
 says the run was ok, and names the device. Without CUDA the script
@@ -2099,6 +2110,275 @@ def autotune(device, seed, work_dir, rows=(8000, 2000, 2000), epochs=2):
     return out, card
 
 
+# the nnlib phase: the NN library off the main path at the KKBox
+# config's widths (13 fields, d=40, batch 4096, DNN 400^3, 1+K = 6
+# rows), each layer's card run held to its CPU run
+NNLIB_OUT_TOL = {"rtol": 1e-4, "atol": 1e-5}
+NNLIB_GRAD_TOL = {"rtol": 2e-3, "atol": 1e-4}
+# trained-scale embeddings for the towers (the init's N(0, 1e-4) would
+# make every product fall under the absolute tolerance)
+NNLIB_EMB_STD = 0.1
+
+
+class _PETGraph(torch.nn.Module):
+    """PET over a batch of instance graphs: feature nodes take their
+    MergedEmbeddingLayer rows (globally offset ids), instance nodes the
+    label embedding (2 = [MASK] for the target), each edge the embedding
+    of its cell's column; then PET_Layer."""
+
+    def __init__(self, fm, n_cols, d, layers, generator):
+        super().__init__()
+        from rat_tpu_torch.nn import MergedEmbeddingLayer, PET_Layer
+        self.merged = MergedEmbeddingLayer(fm, d, generator)
+        self.label = torch.nn.Parameter(torch.randn((3, d), generator=generator))
+        self.column = torch.nn.Parameter(0.1 * torch.randn((n_cols, d), generator=generator))
+        self.pet = PET_Layer(layers, d, d, dropout=0.0, generator=generator)
+
+    def forward(self, node_ids, labels, is_feature, edge_col, src, dst):
+        feat = self.merged(torch.where(is_feature, node_ids, torch.zeros_like(node_ids)))
+        # F.embedding: ~10^5 lookups of each of 3 labels and 17 columns
+        node_h = torch.where(is_feature[:, None], feat,
+                             torch.nn.functional.embedding(labels, self.label))
+        return self.pet(node_h, torch.nn.functional.embedding(edge_col, self.column), src,
+                        dst)
+
+
+def _leaves(out):
+    if isinstance(out, dict):
+        return list(out.values())
+    return list(out) if isinstance(out, (tuple, list)) else [out]
+
+
+def _worst(got, want, tol):
+    """(max |got - want|, max of |got - want| / (atol + rtol |want|)): the
+    check passes while the second is at most 1."""
+    diff = (got.detach().double().cpu() - want.detach().double()).abs()
+    return float(diff.max()), float((diff / (tol["atol"] + tol["rtol"]
+                                             * want.detach().double().abs())).max())
+
+
+def _run_layer(mod, xs, rs, kw):
+    """Forward, then backward of sum(output * R); float inputs require
+    their gradient. Returns (outputs, {parameter or input: gradient})."""
+    xs = [x.detach().clone().requires_grad_() if x.is_floating_point() else x for x in xs]
+    mod.zero_grad(set_to_none=True)
+    outs = _leaves(mod(*xs, **kw))
+    if rs is None:
+        gen = torch.Generator().manual_seed(0)
+        rs = [torch.randn(o.shape, generator=gen, dtype=o.dtype) for o in outs]
+    sum((o * r).sum() for o, r in zip(outs, rs)).backward()
+    grads = {name: p.grad for name, p in mod.named_parameters()}
+    grads.update(("input{}".format(i), x.grad) for i, x in enumerate(xs)
+                 if x.is_floating_point())
+    return outs, grads, rs
+
+
+def _errors(got_out, want_out, got_grad, want_grad):
+    """The largest |error| of the outputs and of the gradients, the
+    largest ratio of an error to NNLIB_OUT_TOL / NNLIB_GRAD_TOL (at most
+    1 passes) and the gradient where it is, and the count of gradient
+    elements beyond the tolerance."""
+    res = {"out_max": max(float(o.detach().abs().max()) for o in want_out),
+           "out_err": 0.0, "out_worst": 0.0, "grad_err": 0.0, "grad_worst": 0.0,
+           "grad_worst_at": None, "grad_beyond": 0, "grad_elems": 0}
+    for got, want in zip(got_out, want_out):
+        err, worst = _worst(got, want, NNLIB_OUT_TOL)
+        res.update(out_err=max(res["out_err"], err), out_worst=max(res["out_worst"], worst))
+    for name, want in want_grad.items():
+        got = got_grad[name]
+        if (got is None) != (want is None):
+            raise AssertionError("{}: a gradient on one device only".format(name))
+        if want is None:
+            continue
+        err, worst = _worst(got, want, NNLIB_GRAD_TOL)
+        res["grad_err"] = max(res["grad_err"], err)
+        if worst >= res["grad_worst"]:
+            res.update(grad_worst=worst, grad_worst_at=name)
+        diff = (got.detach().double().cpu() - want.double()).abs()
+        res["grad_beyond"] += int((diff > NNLIB_GRAD_TOL["atol"] + NNLIB_GRAD_TOL["rtol"]
+                                   * want.double().abs()).sum())
+        res["grad_elems"] += want.numel()
+    return res
+
+
+def _held(res):
+    return res["out_worst"] <= 1 and res["grad_worst"] <= 1
+
+
+def _hold_layer(module, inputs, device, kw=None, reps=3):
+    """``module`` (built on the CPU) and a copy on ``device`` run forward
+    and backward of sum(output * R), R ~ N(0, 1), on the same inputs:
+    the outputs held within NNLIB_OUT_TOL, the parameter and input
+    gradients within NNLIB_GRAD_TOL (_errors). A relu whose input lies
+    within the two devices' float32 rounding of 0 takes the other branch
+    on one of them and moves whole rows of the gradients before it, and
+    a layer that amplifies its input's rounding (APG's weights generated
+    from its own input) moves its small outputs past the absolute
+    tolerance; where float32 misses, both runs are made again in float64
+    and held to the same tolerances there (``float64``). Then ms per
+    forward+backward (CUDA events) and the peak of max_memory_allocated
+    in the first card run."""
+    import copy
+    kw = kw or {}
+    cuda = torch.device(device).type == "cuda"
+    pristine = copy.deepcopy(module)
+    card = copy.deepcopy(module).to(device)
+    want_out, want_grad, rs = _run_layer(module, inputs, None, kw)
+    xs, rs = [x.to(device) for x in inputs], [r.to(device) for r in rs]
+    if cuda:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    got_out, got_grad, _ = _run_layer(card, xs, rs, kw)
+    peak = torch.cuda.max_memory_allocated(device) if cuda else None
+    res = _errors(got_out, want_out, got_grad, want_grad)
+    res["ms"] = _cuda_ms(lambda: _run_layer(card, xs, rs, kw), reps) if cuda else None
+    res["peak_mib"] = peak / 2 ** 20 if cuda else None
+    if not _held(res):
+        del card, got_out, got_grad, xs
+        cpu64 = pristine.double()
+        card64 = copy.deepcopy(cpu64).to(device)
+        x64 = [x.double() if x.is_floating_point() else x for x in inputs]
+        r64 = [r.double() for r in rs]
+        want_out, want_grad, _ = _run_layer(cpu64, x64, [r.cpu() for r in r64], kw)
+        got_out, got_grad, _ = _run_layer(card64, [x.to(device) for x in x64], r64, kw)
+        res["float64"] = _errors(got_out, want_out, got_grad, want_grad)
+    return res
+
+
+def nnlib(device, seed, batch_size=4096, vocab=None):
+    """Every layer of the NN library off the main path, forward and
+    backward on ``device`` at the KKBox config's widths (13 fields,
+    d=40, DNN 400^3; ``batch_size`` groups of 1+K = 6 rows of the KKBox
+    map's 17 id columns, from kkbox_arrays), each held to the same
+    module's run on the CPU (NNLIB_OUT_TOL on outputs, NNLIB_GRAD_TOL on
+    gradients), timed and its peak memory read. Families: the v2 feature
+    embeddings, the interactions over the target row's [B, 13, 40]
+    embeddings, the tower layers, target attention over the 5
+    neighbours, APG, and the graphs. Returns {family: {layer: result}}.
+    Weights come from generators seeded with ``seed``."""
+    from rat_tpu_torch import nn as lib
+    from rat_tpu_torch.data.graph import PETGraphProcessor, batch_graphs
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("nnlib: TF32 is on; rat_tpu_torch turns it off")
+    gen = torch.Generator().manual_seed(seed)
+    rows, _ = kkbox_arrays(seed, batch_size * 6, 0, vocab)
+    grid = rows.reshape(batch_size, 6, -1)
+    X = torch.from_numpy(grid[..., :-1].astype(np.int64))            # [B, 6, 17]
+    fm = kkbox_feature_map(vocab)
+    F_, d, B = len(fm.feature_specs), KKBOX_PARAMS["embedding_dim"], batch_size
+    n_cols = X.shape[-1]
+    std = "partial(nn.init.normal_, std={})".format(NNLIB_EMB_STD)
+    out = {}
+
+    def hold(family, name, module, inputs, **kw):
+        out.setdefault(family, {})[name] = _hold_layer(module, inputs, device, **kw)
+
+    def with_specs(changes):
+        new = FeatureMap(fm.dataset_id, ".")
+        new.feature_specs.update({name: dict(spec, **changes.get(name, {}))
+                                  for name, spec in fm.feature_specs.items()})
+        return new
+
+    # the v2 embeddings: a dict with a KMax + Linear chain, a masked
+    # average and a field at its own width; the tensor view of the map
+    # with both sequences averaged feeds the towers
+    avg = "layers.MaskedAveragePooling()"
+    seq_a, seq_b = KKBOX_SEQUENCES
+    fm_dict = with_specs({seq_a: {"feature_encoder": ["layers.KMaxPooling(2, dim=1)",
+                                                      "nn.Linear({0}, {0})".format(d)]},
+                          seq_b: {"feature_encoder": avg}, "isrc": {"embedding_dim": 16}})
+    hold("embeddings", "FeatureEmbeddingDict",
+         lib.FeatureEmbeddingDict(fm_dict, d, embedding_initializer=std, generator=gen), [X])
+    hold("embeddings", "FeatureEmbedding_dynamic_dim",
+         lib.FeatureEmbedding(fm_dict, d, embedding_initializer=std, generator=gen), [X],
+         kw={"feature_type": "categorical", "dynamic_emb_dim": True})
+    emb_layer = lib.FeatureEmbedding(with_specs({name: {"feature_encoder": avg}
+                                                 for name in KKBOX_SEQUENCES}),
+                                     d, embedding_initializer=std, generator=gen)
+    hold("embeddings", "FeatureEmbedding", emb_layer, [X])
+    with torch.no_grad():
+        emb = emb_layer(X)                                              # [B, 6, F, d]
+    x0 = emb[:, 0].contiguous()                                         # the target row
+    flat, nbrs = x0.reshape(B, -1), emb[:, 1:].reshape(B, 5, -1).contiguous()
+
+    for output in lib.InnerProductLayer.OUTPUTS:
+        hold("interactions", "InnerProduct_" + output, lib.InnerProductLayer(F_, output),
+             [x0])
+    for kind in ("field_all", "field_each", "field_interaction"):
+        hold("interactions", "Bilinear_" + kind,
+             lib.BilinearInteractionLayer(F_, d, kind, generator=gen), [x0])
+    for kind in lib.HolographicInteractionLayer.TYPES:
+        hold("interactions", "Holographic_" + kind,
+             lib.HolographicInteractionLayer(F_, kind), [x0])
+    hold("interactions", "CrossNet", lib.CrossNet(F_ * d, 3, generator=gen), [flat])
+    hold("interactions", "CIN", lib.CompressedInteractionNet(F_, (100, 100), generator=gen),
+         [x0])
+    hold("interactions", "InteractionMachine",
+         lib.InteractionMachine(d, order=5, batch_norm=True, generator=gen), [x0])
+
+    hold("tower", "SqueezeExcitation", lib.SqueezeExcitationLayer(F_, generator=gen), [x0])
+    lr_spec = lib.EmbeddingSpec.build(fm, 1, force_dim=1)
+    hold("tower", "FMLayer", lib.FMLayer(lr_spec, generator=gen), [X, x0])
+    units = KKBOX_PARAMS["dnn_hidden_units"]
+    for norm in ("batch_norm", "layer_norm"):
+        for before in (True, False):
+            hold("tower", "MLPBlock_{}_{}".format(norm, "before" if before else "after"),
+                 lib.MLPBlock(F_ * d, units, output_dim=1, norm_before_activation=before,
+                              **{norm: True}, generator=gen), [flat])
+
+    mask = torch.from_numpy(np.random.RandomState(seed).rand(B, 5) > 0.2)
+    hold("target_attention", "DIN_Attention",
+         lib.DIN_Attention(F_ * d, attention_units=(80, 40), use_softmax=True,
+                           generator=gen), [flat, nbrs, mask])
+    hold("target_attention", "MultiHeadTargetAttention",
+         lib.MultiHeadTargetAttention(F_ * d, F_ * d, num_heads=8, generator=gen),
+         [flat, nbrs, mask])
+    hold("target_attention", "Dice", lib.Dice(F_ * d), [flat])
+
+    # BatchNorm keeps the hidden states at unit scale: without it a
+    # weight generated from a layer's own input shrinks the output
+    # quadratically, to ~1e-17 after four layers
+    meta = {"hidden_units": [64], "hidden_activations": "relu"}
+    hold("apg", "APGMLPLayer_self",
+         lib.APGMLPLayer(F_ * d, 1, units, condition_mode="self", decompose_ranks=32,
+                         batch_norm=True, meta_net_configs=meta, generator=gen), [flat])
+    lens = mask[:, :4].sum(dim=1)
+    hold("apg", "APGMLPLayer_moe_attention",
+         lib.APGMLPLayer(F_ * d, 1, units, condition_mode="moe", decompose_ranks=32,
+                         batch_norm=True,
+                         meta_net_configs=dict(meta, input_dim=F_ * d, num_experts=4,
+                                               aggregation="attention"), generator=gen),
+         [flat, nbrs[:, :4].contiguous(), lens])
+
+    hold("graphs", "FiGNN_Layer",
+         lib.FiGNN_Layer(F_, d, gnn_layers=3, use_gru=True, use_residual=True,
+                         generator=gen), [x0])
+    t0 = time.perf_counter()
+    ids = PETGraphProcessor.convert_indices(grid[..., :-1].astype(np.int64), fm.feature_specs)
+    graphs = batch_graphs([PETGraphProcessor.build_instance_graph(ids[b], grid[b, :, -1])
+                           for b in range(B)])
+    edge_col = np.tile(np.tile(np.arange(n_cols), 6), 2 * B)
+    graph_s = time.perf_counter() - t0
+    hold("graphs", "PET_Layer", _PETGraph(fm, n_cols, d, 2, gen),
+         [torch.from_numpy(graphs["original_node_ids"]), torch.from_numpy(graphs["label"]),
+          torch.from_numpy(graphs["is_feature"]), torch.from_numpy(edge_col),
+          torch.from_numpy(graphs["edge_src"].astype(np.int64)),
+          torch.from_numpy(graphs["edge_dst"].astype(np.int64))])
+    out["graphs"]["PET_Layer"].update(graphs=B, nodes=int(graphs["num_nodes"]),
+                                      edges=len(graphs["edge_src"]), build_s=graph_s)
+    for family, layers in out.items():
+        print("nnlib: " + json.dumps({"family": family, "out_tol": NNLIB_OUT_TOL,
+                                      "grad_tol": NNLIB_GRAD_TOL, "layers": layers}))
+    misses = {"{}/{}".format(family, name): res for family, layers in out.items()
+              for name, res in layers.items()
+              if not (_held(res) or _held(res.get("float64", res)))}
+    if misses:
+        raise AssertionError("nnlib: card against CPU beyond the tolerance: "
+                             + json.dumps(misses))
+    return out
+
+
 def _ptxas_report(name):
     """{kernel (mangled): (registers, bytes of spill stores)} from
     ptxas's report of csrc/<name>.cu."""
@@ -2309,6 +2589,16 @@ def main(argv=None):
     print("autotune launches (the card run's log; asserted K1 > 0): "
           + json.dumps(autotune_launches))
     print("autotune phase: {:.1f} s".format(time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    k1.launches = k2.launches = k3.launches = 0
+    res = nnlib(device, args.seed)
+    nnlib_launches = {"cross_intra_block": k1.launches, "bm25_topk": k2.launches,
+                      "bm25_score_chunk": k3.launches}
+    if any(nnlib_launches.values()):
+        raise AssertionError("nnlib: kernels launched {}".format(nnlib_launches))
+    print("nnlib launches (asserted 0: the library runs in plain PyTorch): "
+          + json.dumps(nnlib_launches))
+    print("nnlib phase: {:.1f} s".format(time.perf_counter() - t0))
     by_path = {"serve": serve_launches, "train": train_launches,
                "kkbox_train": kkbox_launches, "variants": variant_launches,
                "cli": cli_launches,

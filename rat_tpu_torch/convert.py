@@ -1,5 +1,6 @@
-"""Carry RATModel weights from the JAX package's flax trees to this
-package's state dict, for every variant.
+"""Carry weights from the JAX package's flax trees to this package's
+state dicts: RATModel's, for every variant (:func:`params_from_jax`),
+and any layer of the NN library's (:func:`layer_params_from_jax`).
 
 The trees are given as nested dicts of numpy arrays (``jax.device_get``
 of ``TrainState.params`` and, with BatchNorm, ``TrainState.batch_stats``).
@@ -88,6 +89,59 @@ def params_from_jax(params, batch_stats=None):
     for tree in (params, batch_stats or {}):
         for path, value in _flatten(tree):
             name, transpose = torch_name(path)
+            arr = np.array(value, dtype=np.float32)   # a writable copy
+            state[name] = torch.from_numpy(np.ascontiguousarray(
+                arr.T if transpose else arr))
+    return state
+
+
+# flax's automatic module names -> the port's module lists
+_AUTO = ((r"Dense_(\d+)", r"linears.\1"), (r"TorchBatchNorm_(\d+)", r"norms.\1"),
+         (r"LayerNorm_(\d+)", r"norms.\1"), (r"MLPLayer_(\d+)", r"mlps.\1"),
+         (r"CrossInteractionLayer_(\d+)", r"cross_layers.\1"))
+# the library's explicitly named modules keep their flax names
+_NAMED = (r"W_[qkvo]|W_attn|fc|fn|gnn(_\d+)?|gru|ih|hh|layer_\d+|[QKVW]|edge_W|layernorm"
+          r"|linear_\d+|[UV]_(matrix|over)|hyper_\d+(_expert_\d+|_query)?|lr_layer"
+          r"|embedding_layer|enc_\w+")
+# raw parameters, kept as they are (einsum weights included)
+_RAW = (r"W|W_in|W_out|bias_p|cin_w\d+|weight|bias|alpha|table(_d\d+)?"
+        r"|numeric_weights(_d\d+)?")
+
+
+def layer_torch_name(path):
+    """(state-dict name, transpose?) of a flax parameter or batch-stats
+    path of an NN-library layer; raises KeyError for a path without a
+    rule."""
+    *modules, leaf = path.split("/")
+    names = []
+    for module in modules:
+        for pattern, template in _AUTO:
+            m = re.fullmatch(pattern, module)
+            if m is not None:
+                names.append(m.expand(template))
+                break
+        else:
+            if re.fullmatch(_NAMED, module) is None:
+                raise KeyError("no torch counterpart for flax module {} in {}"
+                               .format(module, path))
+            names.append(module)
+    if leaf in ("kernel", "scale", "mean", "var"):
+        name, transpose = _LEAVES[leaf]
+    elif re.fullmatch(_RAW, leaf) is not None:
+        name, transpose = leaf, False
+    else:
+        raise KeyError("no torch counterpart for flax parameter " + path)
+    return ".".join(names + [name]), transpose
+
+
+def layer_params_from_jax(params, batch_stats=None):
+    """An NN-library layer's flax params (and batch stats) -> the state
+    dict of the port's module. Dense kernels are transposed; einsum
+    weights (``cin_w{i}``, ``W_in`` / ``W_out``, ``W``) are not."""
+    state = {}
+    for tree in (params, batch_stats or {}):
+        for path, value in _flatten(tree):
+            name, transpose = layer_torch_name(path)
             arr = np.array(value, dtype=np.float32)   # a writable copy
             state[name] = torch.from_numpy(np.ascontiguousarray(
                 arr.T if transpose else arr))

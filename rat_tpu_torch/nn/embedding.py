@@ -31,6 +31,7 @@ of rows, and :class:`RowShardedLookup` gathers the ids in that range,
 zeros the others and sums the partial vectors over the model group.
 """
 
+import math
 import os
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
@@ -38,6 +39,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 from torch import nn
 
 from .initializers import embedding_init, xavier_normal
@@ -167,6 +169,20 @@ def load_pretrained(data_dir, fname, name):
         return torch.from_numpy(np.asarray(hf[name][:], dtype=np.float32))
 
 
+def init_table(spec, embedding_dim, generator, std=1.e-4, data_dir=None):
+    """The packed [total_rows, d] table: N(0, std) rows, the padding
+    rows zero, the pretrained rows loaded."""
+    table = embedding_init(generator, (spec.total_rows, embedding_dim), std=std)
+    pad_rows = spec.token_offsets + spec.token_padding
+    pad_rows = np.unique(pad_rows[spec.token_padding >= 0])
+    table[torch.from_numpy(pad_rows)] = 0.0
+    for name, info in spec.pretrained.items():
+        if not info["side"]:
+            table[info["offset"]: info["offset"] + info["rows"]] = \
+                load_pretrained(data_dir, info["file"], name)
+    return table
+
+
 def _pool(vecs, mask, encoder):
     """Pool a sequence field's [..., max_len, d] vectors; ``mask``
     [..., max_len] marks its non-padding tokens."""
@@ -224,16 +240,8 @@ class PackedEmbedding(nn.Module):
                  data_dir=None):
         super().__init__()
         self.spec = spec
-        table = embedding_init(generator, (spec.total_rows, embedding_dim),
-                               std=init_std)
-        pad_rows = spec.token_offsets + spec.token_padding
-        pad_rows = np.unique(pad_rows[spec.token_padding >= 0])
-        table[torch.from_numpy(pad_rows)] = 0.0
-        for name, info in spec.pretrained.items():
-            if not info["side"]:
-                table[info["offset"]: info["offset"] + info["rows"]] = \
-                    load_pretrained(data_dir, info["file"], name)
-        self.table = nn.Parameter(table)
+        self.table = nn.Parameter(init_table(spec, embedding_dim, generator, init_std,
+                                             data_dir))
         if spec.numeric_cols.size:
             self.numeric_weights = nn.Parameter(
                 xavier_normal(generator, (len(spec.numeric_cols), embedding_dim)))
@@ -307,3 +315,22 @@ class LabelEmbedding(nn.Module):
 
     def forward(self, labels):
         return self.table[labels]
+
+
+class MergedEmbeddingLayer(nn.Module):
+    """One ``table`` over the concatenated vocabularies of every field,
+    Xavier-uniform (fan_avg: U(-a, a), a = sqrt(6 / (rows + d))). It
+    takes globally offset ids
+    (``data.graph.PETGraphProcessor.convert_indices``)."""
+
+    def __init__(self, feature_map, embedding_dim, generator=None):
+        super().__init__()
+        rows = sum(spec["vocab_size"] for spec in feature_map.feature_specs.values())
+        bound = math.sqrt(6.0 / (rows + embedding_dim))
+        self.table = nn.Parameter(
+            (2 * torch.rand((rows, embedding_dim), generator=generator) - 1) * bound)
+
+    def forward(self, X):
+        # F.embedding's CUDA backward splits the runs of a repeated id;
+        # indexing's adds them one by one (a frequent id recurs ~B times)
+        return F.embedding(X, self.table)

@@ -1,5 +1,5 @@
 """Core NN layers (port of rat_tpu.nn.layers): BatchNorm, dropout, MLP
-tower, LR (wide) tower, transformer primitives.
+tower, LR (wide) tower, FM, transformer primitives.
 
 Parity notes, as in the JAX package:
 - GELU is the exact (erf) variant;
@@ -136,19 +136,22 @@ class TorchBatchNorm(nn.Module):
     """BatchNorm over the last axis, as the JAX package's
     ``TorchBatchNorm``: in training, normalize with the batch mean and
     BIASED variance, and move the running mean and the UNBIASED running
-    variance (factor n / max(n - 1, 1)) by momentum 0.1 (torch's
-    convention; flax's decay 0.9); in eval, normalize with the running
-    statistics; eps 1e-5. Unlike ``nn.BatchNorm1d`` it takes a batch of
-    one row in training, as the JAX module does. The running statistics
-    are buffers."""
+    variance (factor n / max(n - 1, 1)) by ``momentum`` (torch's
+    convention: flax's decay is 1 - momentum, 0.9 for the default 0.1);
+    in eval, normalize with the running statistics. ``affine=False``
+    drops the scale and bias (Dice's norm). Unlike ``nn.BatchNorm1d`` it
+    takes a batch of one row in training, as the JAX module does. The
+    running statistics are buffers."""
 
-    momentum = 0.1
-    eps = 1e-5
-
-    def __init__(self, num_features):
+    def __init__(self, num_features, momentum=0.1, eps=1e-5, affine=True):
         super().__init__()
-        self.weight = nn.Parameter(torch.ones(num_features))
-        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.momentum = momentum
+        self.eps = eps
+        if affine:
+            self.weight = nn.Parameter(torch.ones(num_features))
+            self.bias = nn.Parameter(torch.zeros(num_features))
+        else:
+            self.weight = self.bias = None
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
         self.group = None
@@ -173,48 +176,94 @@ class TorchBatchNorm(nn.Module):
                                        + (1.0 - decay) * (var * (n / max(n - 1, 1))))
         else:
             mean, var = self.running_mean, self.running_var
-        return (x - mean) / torch.sqrt(var + self.eps) * self.weight + self.bias
+        y = (x - mean) / torch.sqrt(var + self.eps)
+        return y if self.weight is None else y * self.weight + self.bias
+
+
+def bi_interaction(feature_emb):
+    """[..., F, d] -> [..., d]: the sum over field pairs of the
+    elementwise products, as (sum^2 - sum of squares) / 2."""
+    square_of_sum = feature_emb.sum(dim=-2) ** 2
+    sum_of_squares = (feature_emb ** 2).sum(dim=-2)
+    return (square_of_sum - sum_of_squares) * 0.5
+
+
+def _per_layer(value, n):
+    """One value per hidden layer: a list as given, else ``value`` n times."""
+    return list(value) if isinstance(value, (list, tuple)) else [value] * n
 
 
 class MLPLayer(nn.Module):
-    """Dense tower: [Linear, BatchNorm?, act, dropout]* + output Linear.
-    ``dropout_rates`` is one rate or one per hidden layer."""
+    """Dense tower: [Linear, BatchNorm?, act, dropout]* + an output
+    Linear when ``output_dim`` is set, then ``output_activation``.
+    ``hidden_activations`` and ``dropout_rates`` are one value or one
+    per hidden layer."""
 
-    def __init__(self, input_dim, output_dim, hidden_units,
+    def __init__(self, input_dim, output_dim=None, hidden_units=(),
                  hidden_activations="relu", dropout_rates=0., batch_norm=False,
-                 generator=None):
+                 generator=None, output_activation=None, use_bias=True):
         super().__init__()
-        drops = dropout_rates if isinstance(dropout_rates, (list, tuple)) \
-            else [dropout_rates] * len(hidden_units)
-        self.act = get_activation(hidden_activations)
-        dims = [input_dim] + list(hidden_units) + [output_dim]
-        self.linears = nn.ModuleList(linear(a, b, generator)
+        self.acts = [get_activation(a) for a in
+                     _per_layer(hidden_activations, len(hidden_units))]
+        self.out_act = None if output_activation is None \
+            else get_activation(output_activation)
+        dims = [input_dim] + list(hidden_units) \
+            + ([] if output_dim is None else [output_dim])
+        self.n_hidden = len(hidden_units)
+        self.linears = nn.ModuleList(linear(a, b, generator, bias=use_bias)
                                      for a, b in zip(dims, dims[1:]))
         self.norms = nn.ModuleList(TorchBatchNorm(u) for u in hidden_units) \
             if batch_norm else None
-        self.drops = nn.ModuleList(Dropout(p) for p in drops)
+        self.drops = nn.ModuleList(Dropout(p) for p in
+                                   _per_layer(dropout_rates, len(hidden_units)))
 
     def forward(self, x):
-        for i, layer in enumerate(self.linears[:-1]):
+        for i, layer in enumerate(self.linears):
             x = layer(x)
-            if self.norms is not None:
-                x = self.norms[i](x)
-            x = self.drops[i](self.act(x))
-        return self.linears[-1](x)
+            if i < self.n_hidden:
+                if self.norms is not None:
+                    x = self.norms[i](x)
+                x = self.drops[i](self.acts[i](x))
+        return x if self.out_act is None else self.out_act(x)
 
 
 class LRLayer(nn.Module):
-    """Wide/LR tower via the 1-dim-embedding one-hot trick, without bias
-    (as RATModel uses it). For a grid input [B, 1+K, F] the per-sample
-    logits are averaged over the samples."""
+    """Wide/LR tower via the 1-dim-embedding one-hot trick. For a grid
+    input [B, 1+K, F] the per-sample logits are aggregated over the
+    samples by ``retrieval_aggregation`` (mean or sum). Bias-free by
+    default, as RATModel uses it."""
 
-    def __init__(self, spec, generator=None):
+    def __init__(self, spec, generator=None, use_bias=False,
+                 retrieval_aggregation="mean"):
         super().__init__()
+        if retrieval_aggregation not in ("mean", "sum"):
+            raise NotImplementedError(retrieval_aggregation)
+        self.retrieval_aggregation = retrieval_aggregation
         self.embedding_layer = PackedEmbedding(spec, 1, generator=generator)
+        self.bias = nn.Parameter(torch.zeros(1)) if use_bias else None
 
     def forward(self, X_tokens, X_numeric=None):
         output = self.embedding_layer(X_tokens, X_numeric).sum(dim=-2)   # [..., 1]
-        return output.mean(dim=1) if X_tokens.dim() == 3 else output
+        if X_tokens.dim() == 3:
+            output = output.mean(dim=1) if self.retrieval_aggregation == "mean" \
+                else output.sum(dim=1)
+        return output if self.bias is None else output + self.bias
+
+
+class FMLayer(nn.Module):
+    """Factorization machine: the LR term (``lr_layer``, with a bias by
+    default) plus the pairwise inner products' sum of ``feature_emb``
+    [B, F, d]."""
+
+    def __init__(self, spec, use_bias=True, lr_retrieval_aggregation="mean",
+                 generator=None):
+        super().__init__()
+        self.lr_layer = LRLayer(spec, generator=generator, use_bias=use_bias,
+                                retrieval_aggregation=lr_retrieval_aggregation)
+
+    def forward(self, X_tokens, feature_emb, X_numeric=None):
+        dot_sum = bi_interaction(feature_emb).sum(dim=-1, keepdim=True)
+        return dot_sum + self.lr_layer(X_tokens, X_numeric)
 
 
 class FeedForward(nn.Module):
@@ -267,6 +316,19 @@ class Attention(nn.Module):
                         None if self.to_out is None else self.to_out.bias,
                         self.heads, self.dim_head, self.project_out)
         return self.drop(out) if self.project_out else out
+
+
+class PreNorm(nn.Module):
+    """LayerNorm over the last axis (``norms.0``, flax's ``LayerNorm_0``),
+    then the module ``fn``."""
+
+    def __init__(self, dim, fn):
+        super().__init__()
+        self.norms = nn.ModuleList([nn.LayerNorm(dim, eps=1e-5)])
+        self.fn = fn
+
+    def forward(self, x, **kwargs):
+        return self.fn(self.norms[0](x), **kwargs)
 
 
 class PreNormAttention(nn.Module):

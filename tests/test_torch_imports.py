@@ -1,6 +1,6 @@
 """The port's scoring, training and CLI paths, its tooling (autotuner,
-benchmark, health stamp, native encoder, bench_torch.py) and chip_smoke
-import without JAX, the JAX package, or the host packages the GPU
+benchmark, health stamp, native encoder, bench_torch.py), the NN
+library off the main path and chip_smoke import without JAX, the JAX package, or the host packages the GPU
 machine lacks (pandas, h5py, sklearn, yaml): run in a subprocess whose
 import system refuses them, where a sweep is also enumerated. Further subprocesses run the port's CLI end to end, CSV to
 results line, under the same refusal: as published, and with
@@ -69,6 +69,15 @@ import rat_tpu_torch.cli.chip_health
 import rat_tpu_torch.native
 import rat_tpu_torch.ops.bench_kernel
 import bench_torch
+# the NN library off the main path, and PET's graphs
+import rat_tpu_torch.nn.attention_lib
+import rat_tpu_torch.nn.deep
+import rat_tpu_torch.nn.feature_embedding
+import rat_tpu_torch.nn.graph
+import rat_tpu_torch.nn.interaction
+from rat_tpu_torch.data.graph import PETGraphProcessor, batch_graphs
+g = batch_graphs([PETGraphProcessor.build_instance_graph([[1, 2], [1, 3]], [1, 0])])
+assert g["num_nodes"] == 5, g
 # a sweep's enumeration reads and writes its YAML without PyYAML
 import os, tempfile
 from rat_tpu_torch.autotuner import enumerate_params, load_experiment_ids

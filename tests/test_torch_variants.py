@@ -424,3 +424,45 @@ def test_chip_smoke_variants_phase_on_cpu(tmp_path):
         assert res["one_step"] == {"loss_abs_err": 0.0, "grad_max_abs_err": 0.0}
         assert res["AUC"] > 0.55, (name, res)
         assert os.path.exists(os.path.join(str(tmp_path), name))
+
+
+def test_chip_smoke_nnlib_phase_on_cpu():
+    """The nnlib phase at a tiny size on the CPU (16 groups, KKBox's map
+    with vocabularies cut to 40): every layer family runs, its copy held
+    to the module within the phase's tolerances; no time or memory is
+    read off a card."""
+    out = chip_smoke.nnlib("cpu", 0, batch_size=16, vocab=KKBOX_TINY_VOCAB)
+    assert list(out) == ["embeddings", "interactions", "tower", "target_attention", "apg",
+                         "graphs"]
+    assert [len(layers) for layers in out.values()] == [3, 13, 6, 3, 2, 2]
+    for layers in out.values():
+        for res in layers.values():
+            assert res["out_worst"] <= 1 and res["grad_worst"] <= 1, res
+            assert res["ms"] is None and res["peak_mib"] is None
+    pet = out["graphs"]["PET_Layer"]
+    assert pet["graphs"] == 16 and pet["edges"] == 16 * 6 * 17 * 2
+
+
+def test_chip_smoke_layer_check_reruns_misses_in_float64():
+    """A float32 run that misses the tolerance (here: the copy's call is
+    off by 1e-3) is made again in float64 on both sides and held there;
+    a float64 miss (the copy off again) is reported as one."""
+    calls = []
+
+    class Drifting(torch.nn.Module):
+        def __init__(self, drift64):
+            super().__init__()
+            self.w = torch.nn.Parameter(torch.ones(3))
+            self.drift64 = drift64
+
+        def forward(self, x):
+            calls.append(x.dtype)
+            drift = len(calls) == 2 or (self.drift64 and len(calls) == 4)
+            return x * self.w + (1e-3 if drift else 0.0)
+
+    for drift64 in (False, True):
+        calls.clear()
+        res = chip_smoke._hold_layer(Drifting(drift64), [torch.ones(4, 3)], "cpu")
+        assert not chip_smoke._held(res) and res["out_err"] > 9e-4
+        assert chip_smoke._held(res["float64"]) == (not drift64)
+        assert calls == [torch.float32, torch.float32, torch.float64, torch.float64]
