@@ -148,6 +148,24 @@ Phases, any failure exits non-zero:
              2e-3 / atol 1e-4; ms per forward+backward (CUDA events) and the
              peak of max_memory_allocated; one ``nnlib:`` line per family.
              No kernel is launched (asserted).
+18. scripts — the JAX package's run scripts as ported
+             (rat_tpu_torch.scripts), each through its main as a user runs
+             it: (a) tmall_rehearsal --scale 0.03 on
+             configs/RAT_m2/tmall_x1_002 (601,164 train, 634,960 valid and
+             600,000 explicit pool rows made from seed 11; the CSVs, the
+             build, both splits' retrieval through K2 in batches of 2,500
+             queries, one epoch with BatchNorm and dropout, so K1's gate is
+             closed, and the evaluations), launches asserted at K2 = 241 +
+             254 and K1 = K3 = 0, the first K2 call held to its plain
+             version, 512 neighbours of each split against plain scans, K2
+             timed at 2,500 x 600,000 with F=5; (b) tmall_rehearsal_tail
+             --valid-rows 100000 on (a)'s build under stall_guard, a
+             subprocess (exit 0, no kill); (c) profile_train_step at the
+             ML-Tag and Tmall bench shapes (top 15 kernels of each); (d)
+             degraded_ab; (e) dedup_ab --time; (f) tax_probe; (g)
+             gm_encoder_ab --parity at ML-Tag's and KKBox's widths
+             (forward within 1e-4, gradients within 1e-3 relative); (h)
+             chip_health. No kernel is launched after (a) (asserted).
 
 The line before the last is the kernel table as JSON; the last line
 says the run was ok, and names the device. Without CUDA the script
@@ -158,6 +176,7 @@ import argparse
 import contextlib
 import ctypes
 import glob
+import io
 import json
 import os
 import re
@@ -585,17 +604,20 @@ def _k2_case(db, qry, K, device, pad4=False):
 
 
 @contextlib.contextmanager
-def k2_held_to_plain(phase):
-    """Inside, every K2 call of the retrieval engine also runs K2's plain
-    version on the same inputs, and the two must be equal after the
-    zero-score drop (values, indices and counts, ties included). Yields
-    {queries in the call: calls compared}. These plain runs launch no
-    kernel, and the comparison adds no launch to K2's count."""
+def k2_held_to_plain(phase, max_calls=None):
+    """Inside, every K2 call of the retrieval engine (the first
+    ``max_calls`` of them, when given) also runs K2's plain version on
+    the same inputs, and the two must be equal after the zero-score drop
+    (values, indices and counts, ties included). Yields {queries in the
+    call: calls compared}. These plain runs launch no kernel, and the
+    comparison adds no launch to K2's count."""
     kernel = bm25.bm25_topk
     compared = {}
 
     def both(qry, qry_idf, db_T, db_valid_len, topk):
         v, i = kernel(qry, qry_idf, db_T, db_valid_len, topk)
+        if max_calls is not None and sum(compared.values()) >= max_calls:
+            return v, i
         want = bm25._finalize(*k2.bm25_topk_reference(qry, qry_idf, db_T, db_valid_len,
                                                       topk), False)
         if not all(torch.equal(a, b) for a, b in zip(bm25._finalize(v, i, False), want)):
@@ -2379,6 +2401,227 @@ def nnlib(device, seed, batch_size=4096, vocab=None):
     return out
 
 
+TMALL_CONFIG = os.path.join(REPO, "configs", "RAT_m2", "tmall_x1_002")
+TMALL_EXPID = "RAT_m2_tmall_x1_002_retrieval"
+TMALL_DATASET = "tmall_x1_002_retrieval"
+# the rehearsal's row multiplier: 601,164 train, 634,960 test (the valid
+# split) and 600,000 pool rows of Tmall's 20,038,830 / 21,165,358 /
+# 20,000,000, for chip time
+TMALL_SCALE = 0.03
+
+
+def write_tmall_config(out_dir, dataset_id=None, batch_size=None):
+    """A copy of configs/RAT_m2/tmall_x1_002 in ``out_dir`` whose dataset
+    is ``dataset_id`` (the rehearsal builds ``<dataset_id>_s<scale>``,
+    which its tail reads under that name) and, for a run on the CPU,
+    whose batch is ``batch_size``; every width and setting else stays.
+    Returns ``out_dir``."""
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(TMALL_CONFIG, "dataset_config.yaml")) as fh:
+        dataset = fh.read()
+    with open(os.path.join(TMALL_CONFIG, "model_config.yaml")) as fh:
+        model = fh.read()
+    if dataset_id is not None:
+        header = re.compile(r"^{}:".format(re.escape(TMALL_DATASET)), re.M)
+        if len(header.findall(dataset)) != 1:
+            raise AssertionError("scripts: no single {} section".format(TMALL_DATASET))
+        dataset = header.sub(dataset_id + ":", dataset)
+        model = _set_key(model, "dataset_id", dataset_id)
+    if batch_size is not None:
+        model = _set_key(model, "batch_size", batch_size)
+    for name, text in (("dataset_config.yaml", dataset), ("model_config.yaml", model)):
+        with open(os.path.join(out_dir, name), "w") as fh:
+            fh.write(text)
+    return out_dir
+
+
+# (script, argv) of the scripts phase's in-process runs after the
+# rehearsal: the profile at the ML-Tag and the Tmall bench shapes (8
+# steps a window at Tmall's ~224 ms a step), the A/Bs at their defaults,
+# the encoder A/B at ML-Tag's and at KKBox's widths, the health stamp
+SCRIPT_RUNS = (
+    ("profile_train_step", ["mltag"]),
+    ("profile_train_step", ["tmall", "8"]),
+    ("degraded_ab", []),
+    ("dedup_ab", ["--time"]),
+    ("tax_probe", []),
+    ("gm_encoder_ab", ["--parity"]),
+    ("gm_encoder_ab", ["--parity", "--s", "14", "--d", "40", "--heads", "8",
+                       "--dim-head", "10", "--scale-dim", "2"]),
+    ("chip_health", []),
+)
+
+# gm_encoder_ab's parity against the module encoder: the forward's
+# largest absolute error, the largest per-leaf relative gradient error
+GM_FWD_ATOL = 1e-4
+GM_GRAD_RTOL = 1e-3
+
+
+def _tail_under_stall_guard(work_dir, config, rows, cuda, timeout=900):
+    """tmall_rehearsal_tail under ``python -m
+    rat_tpu_torch.scripts.stall_guard`` in ``work_dir``, as a user runs a
+    long job; returns (its TMALL_REHEARSAL_TAIL dict, the guard's
+    stderr). On a timeout the guard gets SIGTERM, on which it kills its
+    child's process group."""
+    cmd = [sys.executable, "-m", "rat_tpu_torch.scripts.stall_guard", "--stall-secs",
+           "600", "--watch", "data/**/*.np[yz]", "--watch", "exps/**/*", "--",
+           sys.executable, "-m", "rat_tpu_torch.scripts.tmall_rehearsal_tail",
+           "--valid-rows", str(rows), "--config", config]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    if not cuda:
+        env.update(RAT_TPU_PLATFORM="cpu", OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(cmd, cwd=work_dir, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.terminate()
+        try:
+            proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+        raise AssertionError("scripts (b): the tail ran past {} s".format(timeout))
+    if proc.returncode != 0 or "killing" in err:
+        raise AssertionError("scripts (b): stall_guard exited {}:\n{}".format(
+            proc.returncode, err[-4000:]))
+    lines = [l for l in out.splitlines() if l.startswith("TMALL_REHEARSAL_TAIL ")]
+    if len(lines) != 1:
+        raise AssertionError("scripts (b): no single TMALL_REHEARSAL_TAIL line")
+    print(lines[0])
+    return json.loads(lines[0].split(" ", 1)[1]), err
+
+
+def scripts(device, work_dir, scale=TMALL_SCALE, tail_rows=100_000, runs=SCRIPT_RUNS,
+            sizes=None, batch_size=None):
+    """The JAX package's run scripts as ported (rat_tpu_torch.scripts),
+    each through its ``main`` as a user runs it, in ``work_dir``:
+
+    (a) tmall_rehearsal at ``scale`` (the slice's path: the CSVs, the
+        build, the train and valid splits' retrieval against the explicit
+        pool through K2, one epoch and the evaluations), with the launch
+        counts zeroed just before and read just after; K2 = the two
+        splits' query batches and K1 = K3 = 0 asserted (BatchNorm and
+        dropout close K1's gate), the first K2 call held to its plain
+        version, 512 neighbours of each split against plain scans, and
+        on a card K2 timed at the path's batch against the pool;
+    (b) tmall_rehearsal_tail on (a)'s build under stall_guard in a
+        subprocess (exit 0, no kill);
+    (c)-(h) ``runs``: each script's ``main(argv)`` in this process (with
+        the keyword sizes of ``sizes[script]`` on the CPU), the profile's
+        total and top 15 rows printed; gm_encoder_ab's parity held to
+        GM_FWD_ATOL and GM_GRAD_RTOL, the health stamp without an error;
+        no kernel launched (asserted).
+
+    ``batch_size`` overrides the Tmall config's batch for a run on the
+    CPU. Returns a dict of results with ``launches`` (those of (a)) and
+    ``k2_tmall`` (K2's times at the Tmall shape, on a card)."""
+    from rat_tpu_torch.scripts import (chip_health, dedup_ab, degraded_ab, gm_encoder_ab,
+                                       profile_train_step, tax_probe, tmall_rehearsal)
+    cuda = torch.device(device).type == "cuda"
+    sizes = sizes or {}
+    tag = "_s{:g}".format(scale)
+    config = write_tmall_config(os.path.join(work_dir, "config"), batch_size=batch_size)
+    cwd = os.getcwd()
+    os.chdir(work_dir)
+    try:
+        k1.launches = k2.launches = k3.launches = 0
+        with k2_held_to_plain("scripts (a)", max_calls=1) as compared:
+            stages = tmall_rehearsal.main(["--scale", "{:g}".format(scale), "--config",
+                                           config], device=device)
+        launches = {"cross_intra_block": k1.launches, "bm25_topk": k2.launches,
+                    "bm25_score_chunk": k3.launches}
+    finally:
+        os.chdir(cwd)
+    if sum(compared.values()) != 1:
+        raise AssertionError("scripts (a): K2 held to its plain version in {} calls, "
+                             "not 1".format(compared))
+
+    data_dir = os.path.join(work_dir, "data", TMALL_DATASET + tag)
+    fm = FeatureMap(TMALL_DATASET + tag, data_dir)
+    fm.load(os.path.join(data_dir, "feature_map.json"))
+    rc = tmall_rehearsal.retrieval_configs(load_config(config, TMALL_EXPID), fm)
+    pool = np.load(os.path.join(data_dir, "retrieval_pool.npy"))
+    splits, checked = {}, {}
+    for split in ("train", "valid"):
+        path = os.path.join(data_dir, split + ".npy")
+        splits[split] = np.load(path)
+        cached = np.load(retrieval_cache_path(path, rc["topK"]))
+        checked[split] = check_neighbours(
+            types.SimpleNamespace(retr_indices=cached["indices"],
+                                  retr_values=cached["values"], retr_lens=cached["lens"]),
+            pool, splits[split], rc, device, "scripts (a) " + split)
+    expected = {"cross_intra_block": 0, "bm25_score_chunk": 0,
+                "bm25_topk": sum(_k2_batches(len(splits[s]), rc) for s in splits)
+                if cuda else 0}
+    if launches != expected:
+        raise AssertionError("scripts (a): launches {} against the expected {}".format(
+            launches, expected))
+    print("scripts (a) rows: train {}, valid {}, pool {}; K2 held to its plain version "
+          "in its first call {}; neighbours checked {}".format(
+              len(splits["train"]), len(splits["valid"]), len(pool), json.dumps(compared),
+              json.dumps(checked)))
+    k2_tmall = {}
+    if cuda:
+        # K2 at the path's batch (qry_batch_size train queries against the
+        # pool, F=5), equal to its plain version, then timed; these
+        # launches are not the path's
+        used, batch = rc["used_col_indices"], rc["qry_batch_size"]
+        same, args = _k2_case(pool[:, used].astype(np.int64),
+                              splits["train"][:batch, used].astype(np.int64), rc["topK"],
+                              device, pad4=True)
+        if not same:
+            raise AssertionError("scripts (a): K2 at the Tmall shape disagrees with its "
+                                 "plain version")
+        k2_tmall = dict(zip(("ms", "call_ms", "plain_ms", "bound_ms", "bound_by"),
+                            _k2_times(*args)))
+        print("K2 tmall_b{}_pool N={} F={} K={}: equal (exact), {:.4f} ms (bound {:.4f} "
+              "ms), plain {:.3f} ms".format(batch, len(pool), len(used), rc["topK"],
+                                            k2_tmall["ms"], k2_tmall["bound_ms"],
+                                            k2_tmall["plain_ms"]))
+        del args
+        torch.cuda.empty_cache()
+
+    tail_config = write_tmall_config(os.path.join(work_dir, "tail_config"),
+                                     dataset_id=TMALL_DATASET + tag, batch_size=batch_size)
+    tail, _ = _tail_under_stall_guard(work_dir, tail_config, tail_rows, cuda)
+
+    modules = {"chip_health": chip_health, "dedup_ab": dedup_ab,
+               "degraded_ab": degraded_ab, "gm_encoder_ab": gm_encoder_ab,
+               "profile_train_step": profile_train_step, "tax_probe": tax_probe}
+    results = []
+    k1.launches = k2.launches = k3.launches = 0
+    for name, argv in runs:
+        t0 = time.perf_counter()
+        kw = sizes.get(name, {})
+        if name == "profile_train_step":
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                res = modules[name].main(argv, device=device, **kw)
+            for line in buf.getvalue().splitlines()[:16]:
+                print("scripts profile_train_step {}: {}".format(" ".join(argv), line))
+        else:
+            res = modules[name].main(argv, device=device, **kw)
+        if name == "gm_encoder_ab" and not (res["fwd_max_abs_err"] <= GM_FWD_ATOL and
+                                            res["grad_max_abs_err"] <= GM_GRAD_RTOL):
+            raise AssertionError("scripts: gm_encoder_ab {} differs from the module "
+                                 "encoder: {}".format(argv, res))
+        if name == "chip_health" and cuda and ("error" in res or not res["probe_valid"]):
+            raise AssertionError("scripts: the health stamp failed: {}".format(res))
+        if name == "dedup_ab" and not all(v > 0 for v in res["time"].values()):
+            raise AssertionError("scripts: dedup_ab --time: {}".format(res["time"]))
+        results.append((name, argv, time.perf_counter() - t0))
+        print("scripts {} {}: {:.1f} s".format(name, " ".join(argv), results[-1][2]))
+    after = {"cross_intra_block": k1.launches, "bm25_topk": k2.launches,
+             "bm25_score_chunk": k3.launches}
+    if any(after.values()):
+        raise AssertionError("scripts: the tools launched kernels {}".format(after))
+    return {"rehearsal": stages, "tail": tail, "neighbours_checked": checked,
+            "k2_tmall": k2_tmall, "launches": launches,
+            "seconds": {"{} {}".format(n, " ".join(a)).strip(): s for n, a, s in results}}
+
+
 def _ptxas_report(name):
     """{kernel (mangled): (registers, bytes of spill stores)} from
     ptxas's report of csrc/<name>.cu."""
@@ -2599,13 +2842,25 @@ def main(argv=None):
     print("nnlib launches (asserted 0: the library runs in plain PyTorch): "
           + json.dumps(nnlib_launches))
     print("nnlib phase: {:.1f} s".format(time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work_dir:
+        res = scripts(device, work_dir)
+    scripts_launches = res.pop("launches")
+    kernels[1].update({k + "_tmall_f5": v for k, v in res.pop("k2_tmall").items()})
+    print("scripts: " + json.dumps(res))
+    print("scripts launches (asserted: K2 = query batches of the rehearsal's train and "
+          "valid splits, K1 = K3 = 0; the tail's subprocess and the tools after it "
+          "launch none in this process): " + json.dumps(scripts_launches))
+    print("scripts phase: {:.1f} s".format(time.perf_counter() - t0))
     by_path = {"serve": serve_launches, "train": train_launches,
                "kkbox_train": kkbox_launches, "variants": variant_launches,
                "cli": cli_launches,
                "blocks": {k: block_launches["a"][k] + block_launches["b"][k]
                           for k in block_launches["a"]},
                "exact_match": exm_launches, "mesh": mesh_launches,
-               "bench": bench_launches, "autotune": autotune_launches}
+               "bench": bench_launches, "autotune": autotune_launches,
+               "scripts": scripts_launches}
     for entry in kernels:
         counts = {path: launches.get(entry["name"], 0)
                   for path, launches in by_path.items()}

@@ -1,5 +1,7 @@
 """Multi-device dry run on tiny shapes (the port's counterpart of the
-JAX package's ``__graft_entry__.dryrun_multichip``).
+JAX package's ``__graft_entry__.dryrun_multichip``), and the flagship
+model's forward with example arguments (``entry``, the counterpart of
+``__graft_entry__.entry``).
 
     python -m rat_tpu_torch.parallel.dryrun N [--cpu]
 
@@ -23,6 +25,8 @@ import torch
 from ..data.loader import SplitBatches
 from ..engine import Trainer
 from ..features import FeatureMap
+from ..models import build_model
+from ..utils import resolve_device
 from .distributed import launch
 from .mesh import make_mesh, resolve_mesh
 
@@ -71,6 +75,25 @@ class TinySplit(SplitBatches):
         self.batch_size, self.shuffle = batch, shuffle
         self.num_samples = n
         self.num_batches = -(-n // batch)
+
+
+def entry(device=None):
+    """(forward, (model, X, y)): the eval forward of the flagship model
+    (RAT_m2 at the tiny map's and params' widths, depth 2) and example
+    arguments, 8 requests with 5 neighbours each drawn as the JAX
+    package's ``__graft_entry__.entry`` draws them, on ``device`` (None:
+    the card). ``forward(model, X, y)`` returns the [8, 1] predictions."""
+    device = resolve_device(device)
+    model = build_model(tiny_feature_map(), tiny_params()).to(device).eval()
+    rng = np.random.RandomState(0)
+    B, K, F = 8, 5, 3
+    X = torch.from_numpy(rng.randint(0, 32, (B, 1 + K, F)).astype(np.int64)).to(device)
+    y = torch.from_numpy(rng.randint(0, 2, (B, 1 + K)).astype(np.float32)).to(device)
+
+    def forward(model, X, y):
+        return model(X, y)["y_pred"]
+
+    return forward, (model, X, y)
 
 
 def one_step(trainer, data, idx, valid):

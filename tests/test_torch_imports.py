@@ -1,11 +1,13 @@
 """The port's scoring, training and CLI paths, its tooling (autotuner,
 benchmark, health stamp, native encoder, bench_torch.py), the NN
-library off the main path and chip_smoke import without JAX, the JAX package, or the host packages the GPU
-machine lacks (pandas, h5py, sklearn, yaml): run in a subprocess whose
+library off the main path and chip_smoke import without JAX, the JAX
+package, or the host packages the GPU machine lacks (pandas, h5py,
+sklearn, yaml): run in a subprocess whose
 import system refuses them, where a sweep is also enumerated. Further subprocesses run the port's CLI end to end, CSV to
 results line, under the same refusal: as published, and with
 ``data_block_size`` and ``inter_block_retrieval`` set; and the ranks of
-a 2-rank mesh run the multi-device dry run under it."""
+a 2-rank mesh run the multi-device dry run under it. Every module of
+the run scripts (rat_tpu_torch.scripts) imports under it too."""
 
 import os
 import subprocess
@@ -151,6 +153,32 @@ def test_blocked_cli_runs_end_to_end_without_blocked_packages(tmp_path):
     assert [f for f in files if f.startswith("train")] == [
         "train_part_0.npy", "train_part_1.npy", "train_part_2.npy"]
     assert len([f for f in files if f.startswith("retrieval_inter_")]) == 3
+
+
+_SCRIPTS = _BLOCK + """
+import importlib, pkgutil
+import rat_tpu_torch.scripts
+names = sorted(m.name for m in pkgutil.iter_modules(rat_tpu_torch.scripts.__path__))
+for name in names:
+    module = importlib.import_module("rat_tpu_torch.scripts." + name)
+    assert callable(module.main), name
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not loaded, loaded
+print(" ".join(names))
+"""
+
+
+def test_scripts_import_without_blocked_packages():
+    """Every module of rat_tpu_torch.scripts (one per JAX script, under
+    its file name) imports with JAX, the JAX package and the host
+    packages refused, and has a ``main``."""
+    out = subprocess.run([sys.executable, "-c", _SCRIPTS], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=REPO))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == sorted(
+        name[:-3] for name in os.listdir(os.path.join(REPO, "scripts"))
+        if name.endswith(".py"))
 
 
 def test_no_jax_or_rat_tpu_imports_in_port_sources():
