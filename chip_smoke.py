@@ -124,8 +124,9 @@ Phases, any failure exits non-zero:
              more with every K2 call (2048-query batches and the 1,696-
              query tail, 200,000 rows) held to its plain version exactly;
              then bench_torch.py's headline (fused path, default
-             steps, with the card's health stamp, which must have no error
-             and no invalid probe) and rat_tpu_torch.ops.bench_kernel (K1
+             steps, with the card's health stamp, which must have no error,
+             no invalid probe and, at the default matmul precision, TF32
+             off) and rat_tpu_torch.ops.bench_kernel (K1
              against the plain block) as subprocesses. bench_scaling needs
              two cards and is not run.
 16. autotune — a two-expid sweep (learning_rate 1e-3 and 1e-4 on the
@@ -137,7 +138,23 @@ Phases, any failure exits non-zero:
              test, 2,000 x 8,000) through the retrieval engine and K1 at
              B=1024 (whole, and padded as the last train and valid
              batches are) are held to their plain versions.
-17. nnlib — the NN library off the main path (rat_tpu_torch.nn's
+17. precision — the JAX package's reduced-precision gate
+             (tests/test_bf16_gate.py) at its shape and bounds:
+             RAT_m2 at d=40, 8 heads x 10, depth 2, BatchNorm, the wide
+             tower, on 8,192 / 2,048 rows of its synthetic data (2-fold
+             self-retrieval and the valid split through K2, topK 3), 4
+             epochs, fitted at float32 and again at bfloat16 (TF32 on this
+             card) through rat_tpu_torch.set_matmul_precision, float32
+             restored after: |dAUC| < 0.005 and |dlogloss| < 0.01; the
+             setting reaches the products (a 1024 x 1024 product's error
+             against float64 at least 10x float32's, the fits' predictions
+             differ), the switch reads each setting, every K2 call equals
+             its plain version, the neighbour caches are identical, K2 =
+             2 x 5, K1 = K3 = 0; a health stamp in a process started with
+             RAT_TPU_MATMUL_PRECISION=bfloat16 reads TF32 on; the bench's
+             Tmall and KKBox train steps' device ms in one window at each
+             setting (recorded).
+18. nnlib — the NN library off the main path (rat_tpu_torch.nn's
              interaction, target-attention, APG and MLP-block, graph and v2
              feature-embedding layers, FM, the merged embedding and PET's
              graphs) at the KKBox config's widths: 13 fields, d=40, 4096
@@ -148,7 +165,7 @@ Phases, any failure exits non-zero:
              2e-3 / atol 1e-4; ms per forward+backward (CUDA events) and the
              peak of max_memory_allocated; one ``nnlib:`` line per family.
              No kernel is launched (asserted).
-18. scripts — the JAX package's run scripts as ported
+19. scripts — the JAX package's run scripts as ported
              (rat_tpu_torch.scripts), each through its main as a user runs
              it: (a) tmall_rehearsal --scale 0.03 on
              configs/RAT_m2/tmall_x1_002 (601,164 train, 634,960 valid and
@@ -190,10 +207,12 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+import rat_tpu_torch
 from rat_tpu_torch import autotuner
 from rat_tpu_torch import native as native_ext
 from rat_tpu_torch.cli import benchmark
 from rat_tpu_torch.data.build import build_dataset
+from rat_tpu_torch.data.io import load_arrays
 from rat_tpu_torch.data.loader import DataGenerator, retrieval_cache_path
 from rat_tpu_torch.data.synthetic import make_kkbox_like, make_mltag_like
 from rat_tpu_torch.engine import Trainer
@@ -1924,6 +1943,13 @@ def native(seed, work_dir, rows=NATIVE_ROWS, vocab=None, min_rows=None):
 # the train benches' steps in this script, cut for chip time (the
 # defaults, which bench_torch.py's headline runs: 64 warm-up steps and
 # windows of 512; bench_torch.py's KKBox and Tmall lines: windows of 256)
+def _repo_env(**extra):
+    """This process's environment with ``extra`` and the repo first on
+    PYTHONPATH, for a subprocess that imports the port."""
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]), **extra)
+
+
 BENCH_STEPS = {"mltag": {"warmup": 16, "steps": 64}, "kkbox": {"warmup": 4, "steps": 8},
                "tmall": {"warmup": 4, "steps": 8}}
 
@@ -1987,9 +2013,7 @@ def bench(device, batch_size=4096, n_rows=200_000, steps=BENCH_STEPS, eval_steps
           "calls by queries {}".format(n_db, json.dumps(compared)))
     if not cuda:
         return lines, launches, compared
-    env = dict(os.environ, RAT_TPU_BENCH_HEADLINE_ONLY="1", RAT_TPU_BENCH_PALLAS="1",
-               PYTHONPATH=os.pathsep.join([REPO] + [p for p in [os.environ.get(
-                   "PYTHONPATH")] if p]))
+    env = _repo_env(RAT_TPU_BENCH_HEADLINE_ONLY="1", RAT_TPU_BENCH_PALLAS="1")
     t0 = time.perf_counter()
     out = subprocess.run([sys.executable, os.path.join(REPO, "bench_torch.py")], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=600)
@@ -2000,6 +2024,9 @@ def bench(device, batch_size=4096, n_rows=200_000, steps=BENCH_STEPS, eval_steps
     health = headline["chip_health"]
     if "error" in health or not health.get("probe_valid"):
         raise AssertionError("bench_torch.py: the health stamp failed: {}".format(health))
+    if health.get("matmul_tf32") is not False and "RAT_TPU_MATMUL_PRECISION" not in env:
+        raise AssertionError("bench_torch.py: TF32 on at the default matmul precision: "
+                             "{}".format(health))
     headline["command_s"] = time.perf_counter() - t0
     lines["bench_torch.py headline"] = headline
     print("bench bench_torch.py headline (fused path, default steps): "
@@ -2130,6 +2157,236 @@ def autotune(device, seed, work_dir, rows=(8000, 2000, 2000), epochs=2):
         raise AssertionError("autotune: a CPU run counted launches {}".format(
             out["launches"]))
     return out, card
+
+
+# the precision phase: the JAX package's reduced-precision gate
+# (tests/test_bf16_gate.py) at its shape and bounds, on the card: the same
+# RAT_m2 fit at a KKBox-like shape (d=40, 8 heads, BatchNorm, the wide
+# tower; 8,192 / 2,048 rows, 2-fold self-retrieval, topK 3, 4 epochs) at
+# float32 and at bfloat16, which the port runs as TF32
+GATE_AUC = 0.005
+GATE_LOGLOSS = 0.01
+GATE_K = 3
+GATE_VOCABS = {"user_id": 300, "item_id": 200, "tag_id": 50}
+GATE_ROWS = (8192, 2048)
+GATE_RETRIEVAL = {"used_col_indices": [0, 1, 2], "exact_match_col_indices": None,
+                  "split_type": "2-fold", "label_wise": False, "pre_retrieval": True,
+                  "topK": GATE_K, "qry_batch_size": 2048, "db_chunk_size": 4096}
+GATE_PARAMS = dict(model="RAT_m2", batch_size=1024, learning_rate=1e-3, epochs=4,
+                   embedding_dim=40, dnn_hidden_units=[64, 32], dnn_activations="relu",
+                   num_heads=8, dim_head=10, depth=2, scale_dim=4, dropout=0.0,
+                   emb_dropout=0.0, net_dropout=0.0, batch_norm=True, use_wide=True,
+                   embedding_regularizer="l2(1.e-5)", net_regularizer=0,
+                   metrics=["AUC", "logloss"], monitor="AUC", monitor_mode="max",
+                   patience=4, every_x_epochs=1, save_best_only=True,
+                   reduce_lr_on_plateau=True, shuffle=False, verbose=0, seed=5,
+                   loss="binary_crossentropy", optimizer="adam",
+                   task="binary_classification")
+# settings of the bench steps' timing windows, in turns
+PRECISION_TURNS = ("float32", "bfloat16")
+
+
+def gate_rows(n, rng):
+    """[user_id, item_id, tag_id, label] float64 rows, drawn as
+    tests/test_bf16_gate.py's ``_synth_rows`` draws them."""
+    u = rng.randint(0, GATE_VOCABS["user_id"], n)
+    i = rng.randint(0, GATE_VOCABS["item_id"], n)
+    t = rng.randint(0, GATE_VOCABS["tag_id"], n)
+    logit = 1.1 * (u % 3 == 0) + 0.8 * (i % 2 == 0) + 0.5 * (t % 4 == 0) - 1.2
+    y = (rng.rand(n) < 1.0 / (1.0 + np.exp(-2.5 * logit))).astype(np.float64)
+    return np.stack([u, i, t, y], axis=1).astype(np.float64)
+
+
+def gate_fit(device, work_dir, tag, rows=GATE_ROWS, epochs=4):
+    """One fit of the gate under ``work_dir/tag``, as the JAX test runs
+    it: the splits from RandomState(11) written as .npy, the train split
+    retrieving from itself in 2 folds and the valid split from the train
+    file, Trainer.fit for ``epochs`` without shuffling, then evaluate on
+    the valid split. Returns (metrics, valid predictions, {split: its
+    neighbour cache})."""
+    rng = np.random.RandomState(11)
+    paths = {split: os.path.join(work_dir, tag, split + ".npy") for split in ("train", "valid")}
+    os.makedirs(os.path.join(work_dir, tag))
+    for split, n in zip(paths, rows):
+        np.save(paths[split], gate_rows(n, rng))
+    fm = FeatureMap("bf16_" + tag, ".")
+    fm.feature_specs.update(
+        {name: {"source": "", "type": "categorical", "vocab_size": v, "index": idx}
+         for idx, (name, v) in enumerate(GATE_VOCABS.items())})
+    fm.num_fields = fm.input_length = len(GATE_VOCABS)
+    fm.num_features = sum(GATE_VOCABS.values())
+    common = dict(batch_size=GATE_PARAMS["batch_size"], shuffle=False, feature_map=fm,
+                  retrieval_configs=dict(GATE_RETRIEVAL), retrieval_augmented=True,
+                  device=device)
+    train_gen = DataGenerator(data_path=paths["train"], retrieval_pool_fname="self",
+                              **common)
+    valid_gen = DataGenerator(data_path=paths["valid"], retrieval_pool_fname=paths["train"],
+                              **common)
+    trainer = Trainer(fm, dict(GATE_PARAMS, model_id="RAT_m2_bf16_" + tag,
+                               model_root=os.path.join(work_dir, "exps_" + tag)),
+                      device=device)
+    trainer.fit(train_gen, valid_gen, epochs=epochs)
+    logs = trainer.evaluate(valid_gen, data=trainer._valid_data)
+    preds = trainer.predict(valid_gen, data=trainer._valid_data)
+    caches = {split: load_arrays(retrieval_cache_path(path, GATE_K))
+              for split, path in paths.items()}
+    return logs, preds, caches
+
+
+def _matmul_err(device, n=1024):
+    """Largest |error| of an n x n float32 product on ``device`` against
+    the same product in float64."""
+    gen = torch.Generator().manual_seed(0)
+    a, b = (torch.randn(n, n, generator=gen) for _ in range(2))
+    got = (a.to(device) @ b.to(device)).cpu().double()
+    return float((got - a.double() @ b.double()).abs().max())
+
+
+def _step_device_ms(trainer, data, idx, batch, steps, warmup):
+    """Device ms per train step (torch.profiler's kernels and copies)
+    over ``steps`` steps after ``warmup``; the steps run on the CPU too,
+    where no time is read (None)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def run(n):
+        for i in range(n):
+            trainer.train_step(data, idx[i % len(idx)], batch)
+    run(warmup)
+    if trainer.device.type != "cuda":
+        run(steps)
+        return None
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run(steps)
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in _device_events(prof.key_averages())) \
+        / 1e3 / steps
+
+
+def _stamp_under(value):
+    """The health stamp (``python -m rat_tpu_torch.cli.chip_health``) of a
+    process started with RAT_TPU_MATMUL_PRECISION=``value``."""
+    out = subprocess.run([sys.executable, "-m", "rat_tpu_torch.cli.chip_health"], cwd=REPO,
+                         env=_repo_env(RAT_TPU_MATMUL_PRECISION=value),
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise AssertionError("chip_health exited {}:\n{}".format(out.returncode,
+                                                                out.stderr[-3000:]))
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def precision(device, work_dir, rows=GATE_ROWS, epochs=4, bench_shapes=("tmall", "kkbox"),
+              bench_batch=4096, bench_rows=200_000, steps=20, warmup=3):
+    """The reduced-precision gate: ``gate_fit`` at float32, then at
+    bfloat16 (TF32) set through ``rat_tpu_torch.set_matmul_precision``;
+    float32 is restored in a ``finally``. Then the bench's train steps
+    at ``bench_shapes`` (cli/benchmark.py's setup, ``bench_batch`` and
+    ``bench_rows``) timed in ``steps``-step windows at the settings of
+    PRECISION_TURNS. Checks: at each setting the matmul TF32 switch reads
+    the setting and cuDNN's TF32 is off; after the phase, float32 again;
+    every K2 call of the fits equals K2's plain version; the two fits'
+    neighbour caches are identical; the launches (K2 = 2 x the query
+    batches of the 2 folds and the valid split, K1 = K3 = 0). On a card
+    also: the
+    gate's |dAUC| < GATE_AUC and |dlogloss| < GATE_LOGLOSS; the check is
+    not vacuous: a 1024 x 1024 product's error against float64 at
+    bfloat16 is at least 10x the error at float32, and the two fits'
+    valid predictions differ; the health stamp of a process started with
+    RAT_TPU_MATMUL_PRECISION=bfloat16 reads TF32 on. Returns a dict of
+    results."""
+    cuda = torch.device(device).type == "cuda"
+    out = {"rows": list(rows), "epochs": epochs, "tf32": {},
+           "matmul_1024_max_abs_err": {}, "fits": {},
+           "step_device_ms": {shape: {} for shape in bench_shapes}, "seconds": {}}
+    fits = {}
+    k1.launches = k2.launches = k3.launches = 0
+    try:
+        with k2_held_to_plain("precision") as compared:
+            for name in ("float32", "bfloat16"):
+                rat_tpu_torch.set_matmul_precision(name)
+                out["tf32"][name] = bool(torch.backends.cuda.matmul.allow_tf32)
+                if out["tf32"][name] != (name != "float32") \
+                        or torch.backends.cudnn.allow_tf32:
+                    raise AssertionError("precision: at {} matmul TF32 reads {}, cuDNN {}"
+                                         .format(name, out["tf32"][name],
+                                                 torch.backends.cudnn.allow_tf32))
+                out["matmul_1024_max_abs_err"][name] = _matmul_err(device)
+                t1 = time.perf_counter()
+                fits[name] = gate_fit(device, work_dir, name, rows, epochs)
+                out["seconds"]["fit_" + name] = time.perf_counter() - t1
+                out["fits"][name] = {k: fits[name][0][k] for k in ("AUC", "logloss")}
+        launches = {"cross_intra_block": k1.launches, "bm25_topk": k2.launches,
+                    "bm25_score_chunk": k3.launches}
+        for shape in out["step_device_ms"]:
+            t1 = time.perf_counter()
+            trainer, data, idx, batch = benchmark._bench_setup(shape, False, bench_batch,
+                                                               n_rows=bench_rows,
+                                                               device=device)
+            for name in PRECISION_TURNS:
+                rat_tpu_torch.set_matmul_precision(name)
+                out["step_device_ms"][shape].setdefault(name, []).append(
+                    _step_device_ms(trainer, data, idx, batch, steps, warmup))
+            del trainer, data, idx
+            if cuda:
+                torch.cuda.empty_cache()
+            out["seconds"][shape + "_steps"] = time.perf_counter() - t1
+    finally:
+        rat_tpu_torch.set_matmul_precision("float32")
+    if torch.backends.cuda.matmul.allow_tf32 \
+            or torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("precision: float32 was not restored")
+    after = {"cross_intra_block": k1.launches, "bm25_topk": k2.launches,
+             "bm25_score_chunk": k3.launches}
+    if after != launches:
+        raise AssertionError("precision: the bench steps launched kernels: {} after the "
+                             "fits' {}".format(after, launches))
+
+    (f32, p32, c32), (bf16, p16, c16) = fits["float32"], fits["bfloat16"]
+    for split in c32:
+        if sorted(c32[split]) != sorted(c16[split]) or not all(
+                np.array_equal(c32[split][k], c16[split][k]) for k in c32[split]):
+            raise AssertionError("precision: the {} neighbour caches differ".format(split))
+    if not (np.all(np.isfinite(p32)) and np.all(np.isfinite(p16))
+            and p32.shape == p16.shape == (rows[1],)):
+        raise AssertionError("precision: predictions of shapes {} and {}, finite: {}"
+                             .format(p32.shape, p16.shape, bool(np.all(np.isfinite(
+                                 np.concatenate([p32, p16]))))))
+    out["d_AUC"] = abs(f32["AUC"] - bf16["AUC"])
+    out["d_logloss"] = abs(f32["logloss"] - bf16["logloss"])
+    out["predictions_max_abs_diff"] = float(np.abs(p32 - p16).max())
+    out["caches_identical"] = sorted(c32)
+    out["cache_rows"] = {split: len(c32[split]["indices"]) for split in c32}
+    calls = 2 * (_fold_k2_batches(rows[0], GATE_RETRIEVAL)
+                 + _k2_batches(rows[1], GATE_RETRIEVAL))
+    expected = {"cross_intra_block": 0, "bm25_topk": calls if cuda else 0,
+                "bm25_score_chunk": 0}
+    if launches != expected:
+        raise AssertionError("precision: launches {} against the expected {}".format(
+            launches, expected))
+    if sum(compared.values()) != calls:
+        raise AssertionError("precision: K2 held to its plain version in {} calls, not "
+                             "{}".format(compared, calls))
+    out["k2_held_to_plain"] = compared
+    if cuda:
+        err = out["matmul_1024_max_abs_err"]
+        if not err["bfloat16"] >= 10 * err["float32"]:
+            raise AssertionError("precision: the reduced setting did not reach the "
+                                 "products: errors {}".format(err))
+        if np.array_equal(p32, p16):
+            raise AssertionError("precision: the two fits' valid predictions are "
+                                 "bit-identical")
+        if not (out["d_AUC"] < GATE_AUC and out["d_logloss"] < GATE_LOGLOSS):
+            raise AssertionError("precision: the gate failed: float32 {}, bfloat16 {}"
+                                 .format(f32, bf16))
+        t1 = time.perf_counter()
+        stamp = _stamp_under("bfloat16")
+        out["seconds"]["stamp_under_bfloat16"] = time.perf_counter() - t1
+        if "error" in stamp or stamp.get("matmul_tf32") is not True:
+            raise AssertionError("precision: the stamp under RAT_TPU_MATMUL_PRECISION="
+                                 "bfloat16: {}".format(stamp))
+        out["stamp_under_bfloat16"] = {k: stamp.get(k) for k in (
+            "matmul_tf32", "matmul_tflops", "mhsa_us", "probe_valid", "nvidia_smi")}
+    return dict(out, launches=launches)
 
 
 # the nnlib phase: the NN library off the main path at the KKBox
@@ -2282,7 +2539,8 @@ def nnlib(device, seed, batch_size=4096, vocab=None):
     from rat_tpu_torch.data.graph import PETGraphProcessor, batch_graphs
 
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
-        raise AssertionError("nnlib: TF32 is on; rat_tpu_torch turns it off")
+        raise AssertionError("nnlib: TF32 is on; rat_tpu_torch's default (float32) "
+                             "turns it off")
     gen = torch.Generator().manual_seed(seed)
     rows, _ = kkbox_arrays(seed, batch_size * 6, 0, vocab)
     grid = rows.reshape(batch_size, 6, -1)
@@ -2575,7 +2833,9 @@ def scripts(device, work_dir, scale=TMALL_SCALE, tail_rows=100_000, runs=SCRIPT_
             raise AssertionError("scripts (a): K2 at the Tmall shape disagrees with its "
                                  "plain version")
         k2_tmall = dict(zip(("ms", "call_ms", "plain_ms", "bound_ms", "bound_by"),
-                            _k2_times(*args)))
+                            _k2_times(*args)),
+                        shape="B={} N={} F={} K={}".format(batch, len(pool), len(used),
+                                                           rc["topK"]))
         print("K2 tmall_b{}_pool N={} F={} K={}: equal (exact), {:.4f} ms (bound {:.4f} "
               "ms), plain {:.3f} ms".format(batch, len(pool), len(used), rc["topK"],
                                             k2_tmall["ms"], k2_tmall["bound_ms"],
@@ -2834,6 +3094,28 @@ def main(argv=None):
     print("autotune phase: {:.1f} s".format(time.perf_counter() - t0))
     t0 = time.perf_counter()
     k1.launches = k2.launches = k3.launches = 0
+    with tempfile.TemporaryDirectory() as work_dir:
+        res = precision(device, work_dir)
+    precision_launches = {"cross_intra_block": k1.launches, "bm25_topk": k2.launches,
+                          "bm25_score_chunk": k3.launches}
+    if precision_launches != res.pop("launches"):
+        raise AssertionError("precision: launches {} after the phase".format(
+            precision_launches))
+    print("precision: " + json.dumps(res))
+    print("precision gate (RAT_m2, d=40, 8 heads, BatchNorm, {} / {} rows, {} epochs): "
+          "float32 AUC {AUC:.6f} logloss {logloss:.6f} | bfloat16 (TF32) AUC {b[AUC]:.6f} "
+          "logloss {b[logloss]:.6f} | |dAUC| {:.2e} < {}, |dlogloss| {:.2e} < {}".format(
+              *res["rows"], res["epochs"], res["d_AUC"], GATE_AUC, res["d_logloss"],
+              GATE_LOGLOSS, b=res["fits"]["bfloat16"], **res["fits"]["float32"]))
+    for shape, by_setting in res["step_device_ms"].items():
+        print("precision {} bench step, device ms per step in turns {}: float32 {}, "
+              "TF32 {}".format(shape, "/".join(PRECISION_TURNS), by_setting["float32"],
+                               by_setting["bfloat16"]))
+    print("precision launches (asserted: K2 = 2 fits x query batches of the 2 folds and "
+          "the valid split, K1 = K3 = 0): " + json.dumps(precision_launches))
+    print("precision phase: {:.1f} s".format(time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    k1.launches = k2.launches = k3.launches = 0
     res = nnlib(device, args.seed)
     nnlib_launches = {"cross_intra_block": k1.launches, "bm25_topk": k2.launches,
                       "bm25_score_chunk": k3.launches}
@@ -2860,7 +3142,7 @@ def main(argv=None):
                           for k in block_launches["a"]},
                "exact_match": exm_launches, "mesh": mesh_launches,
                "bench": bench_launches, "autotune": autotune_launches,
-               "scripts": scripts_launches}
+               "precision": precision_launches, "scripts": scripts_launches}
     for entry in kernels:
         counts = {path: launches.get(entry["name"], 0)
                   for path, launches in by_path.items()}

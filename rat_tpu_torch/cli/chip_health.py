@@ -12,8 +12,9 @@ work), so that the fixed cost of starting and ending a timing cancels:
 - ``kernel_tax_ms``: one elementwise pass over 8 MB of float32 (a
   launch and 16 MB of traffic), 200 passes against 20;
 - ``matmul_tflops``: float32 matmul rate from 9 against 1 chained
-  8192 x 8192 products, with TF32 off (torch's default, which the port
-  keeps; ``matmul_tf32`` in the stamp says so);
+  8192 x 8192 products, with TF32 off at the port's default
+  ``RAT_TPU_MATMUL_PRECISION`` (float32) and on under a reduced one
+  (``matmul_tf32`` in the stamp says which);
 - ``mhsa_us``: the port's ``nn.layers.mhsa`` at the JAX probe's shape
   ([24576, 4, 10], 2 heads), 60 calls against 10.
 

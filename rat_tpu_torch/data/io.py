@@ -47,6 +47,19 @@ def save_npz_atomic(arrays, data_path):
     _atomic_write(data_path, write)
 
 
+def save_hdf5(data_array, data_path, key="data"):
+    """Append one dataset under ``key`` to the h5 file ``data_path``
+    (created, with its parent directories, when missing), as the JAX
+    package's save_hdf5 does."""
+    import h5py
+    logging.info("Saving data to h5: %s", data_path)
+    parent = os.path.dirname(data_path)
+    if parent:
+        os.makedirs(parent, exist_ok=True)
+    with h5py.File(data_path, "a") as hf:
+        hf.create_dataset(key, data=data_array)
+
+
 def save_hdf5_atomic(datasets, data_path):
     """Write several datasets (a dict of key -> array) as ONE h5 file,
     atomically."""

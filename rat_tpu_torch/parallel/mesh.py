@@ -154,6 +154,14 @@ def is_row_sharded(name, tensor):
             and tensor.dim() == 2 and tensor.shape[0] > _MIN_SHARDED_ROWS)
 
 
+def embedding_table_shapes(model):
+    """The set of shapes of the row-shardable tables (:func:`is_row_sharded`)
+    of ``model``: the JAX package's embedding_table_shapes, which gives
+    the same set over the same model's flax params."""
+    return {tuple(t.shape) for name, t in model.named_parameters()
+            if is_row_sharded(name, t)}
+
+
 def shard_range(n_rows, parts, index):
     """Rows [lo, hi) of part ``index`` when ``n_rows`` are cut into
     ``parts`` contiguous parts of ceil(n_rows / parts) rows (the last
