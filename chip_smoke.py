@@ -58,12 +58,28 @@ Phases, any failure exits non-zero:
              runs, K2 at F=11 held to its plain version and timed at
              the valid split's 2400-query batch, then a short profile
              and the step's device-time split.
-9. variants — RAT_m0, RAT_m1 and RAT_m3 at the full widths of their
+9. grouped — grouped dispatch against per-step dispatch, on the train
+             and kkbox_train phases' trainers and splits (no new
+             retrieval): from one saved state (weights, Adam, the dropout
+             generator), 2 groups of 64 ML-Tag steps per step twice, then
+             grouped with the CUDA graph of the step's forward and
+             backward (K1 inside; the optimizer steps after each replay),
+             the LR plateau's decay between the groups in each: step
+             losses and final weights and buffers within the larger of
+             twice the per-step spread and the stated float32 bounds, K1
+             = depth x steps under replay; host ms per step in turns, and
+             device ms per step and idle share under the profiler, both
+             ways; the 200,686 valid rows scored per batch and grouped
+             (the eval graph) in turns, predictions within 1e-6,
+             examples/s; 8 KKBox steps (BatchNorm, embedding dropout)
+             eagerly and as one graphed group from one state, or the
+             gate's reason where the graph is closed.
+10. variants — RAT_m0, RAT_m1 and RAT_m3 at the full widths of their
              ML-Tag configs on the train phase's data and neighbours:
              one step on the card against the same step on the CPU,
              one epoch of Trainer.fit, the reload, steady ms per step
              and a short profile (device time per step, idle share).
-10. cli    — the published ML-Tag experiment run as a user runs it,
+11. cli    — the published ML-Tag experiment run as a user runs it,
              ``python -m rat_tpu_torch.cli.run_expid --config ... --expid
              RAT_m2_movielenslatest_x1_10fold_retrieval --gpu 0``, in a
              subprocess, on CSVs of MovielensLatest_x1's split sizes
@@ -78,7 +94,7 @@ Phases, any failure exits non-zero:
              metrics exactly; the fitted vocabularies must be ML-Tag's
              and the train split's cached neighbours of 512 queries
              equal to the plain scan's.
-11. blocks — the same experiment with ``data_block_size: 300000`` and
+12. blocks — the same experiment with ``data_block_size: 300000`` and
              one epoch, from the cli phase's CSVs, built into a data
              directory of its own (5 train, 2 valid and 1 test block):
              (a) per-block 10-fold retrieval, valid and test against the
@@ -88,7 +104,7 @@ Phases, any failure exits non-zero:
              block sizes, neighbours of 512 queries in each against plain
              scans, the trainer's peak of split bytes equal to one
              block's, the trace file; stage seconds per block.
-12. mesh    — the multi-device layer at the same ML-Tag config, on the
+13. mesh    — the multi-device layer at the same ML-Tag config, on the
              serve and train arrays: (a) the pool-sharded BM25 scan with
              4 shards run in turn (each K2 on its 400,000-row shard, then
              the merge), equal bit for bit to the unsharded retrieval,
@@ -100,13 +116,13 @@ Phases, any failure exits non-zero:
              batch, the evaluation, the weights and full-state round
              trips, and ms per step beside the non-mesh trainer's (the
              cost of the collectives on one rank).
-13. exact_match — exact-match retrieval over the serve phase's arrays
+14. exact_match — exact-match retrieval over the serve phase's arrays
              (200,686 requests, 1,404,801 rows, K=5, batches of 5000):
              user_id exact on Zipf ids, user_id exact on uniform ids, all
              three columns exact; each call's first batch equal to the
              same call on the CPU bit for bit, no kernel launched.
 
-14. native — the native host encoder (rat_tpu_torch/native): whether
+15. native — the native host encoder (rat_tpu_torch/native): whether
              the interpreter's Python.h is there, the extension's g++
              build, then a KKBox-shaped dataset (the port's
              make_kkbox_like at KKBox's vocabularies, 500,000 / 50,000 /
@@ -116,7 +132,7 @@ Phases, any failure exits non-zero:
              split equal; each build's seconds by stage. Runs before cli,
              whose Stage seconds now split the build the same way and whose
              encoder for ML-Tag's float ids must be python.
-15. bench  — the port's benchmark suite (rat_tpu_torch.cli.benchmark) in
+16. bench  — the port's benchmark suite (rat_tpu_torch.cli.benchmark) in
              this process at cut step counts: train on the ML-Tag shape,
              plain and fused, on KKBox's and on Tmall's, eval on ML-Tag,
              BM25 and exact-match retrieval, each bench's kernel launches
@@ -129,7 +145,7 @@ Phases, any failure exits non-zero:
              off) and rat_tpu_torch.ops.bench_kernel (K1
              against the plain block) as subprocesses. bench_scaling needs
              two cards and is not run.
-16. autotune — a two-expid sweep (learning_rate 1e-3 and 1e-4 on the
+17. autotune — a two-expid sweep (learning_rate 1e-3 and 1e-4 on the
              demo experiment with use_pallas) enumerated by
              rat_tpu_torch.autotuner and run by grid_search at once over
              this card and a CPU slot: both exit 0 with a results line, and
@@ -138,7 +154,7 @@ Phases, any failure exits non-zero:
              test, 2,000 x 8,000) through the retrieval engine and K1 at
              B=1024 (whole, and padded as the last train and valid
              batches are) are held to their plain versions.
-17. precision — the JAX package's reduced-precision gate
+18. precision — the JAX package's reduced-precision gate
              (tests/test_bf16_gate.py) at its shape and bounds:
              RAT_m2 at d=40, 8 heads x 10, depth 2, BatchNorm, the wide
              tower, on 8,192 / 2,048 rows of its synthetic data (2-fold
@@ -154,7 +170,7 @@ Phases, any failure exits non-zero:
              RAT_TPU_MATMUL_PRECISION=bfloat16 reads TF32 on; the bench's
              Tmall and KKBox train steps' device ms in one window at each
              setting (recorded).
-18. nnlib — the NN library off the main path (rat_tpu_torch.nn's
+19. nnlib — the NN library off the main path (rat_tpu_torch.nn's
              interaction, target-attention, APG and MLP-block, graph and v2
              feature-embedding layers, FM, the merged embedding and PET's
              graphs) at the KKBox config's widths: 13 fields, d=40, 4096
@@ -165,7 +181,7 @@ Phases, any failure exits non-zero:
              2e-3 / atol 1e-4; ms per forward+backward (CUDA events) and the
              peak of max_memory_allocated; one ``nnlib:`` line per family.
              No kernel is launched (asserted).
-19. scripts — the JAX package's run scripts as ported
+20. scripts — the JAX package's run scripts as ported
              (rat_tpu_torch.scripts), each through its main as a user runs
              it: (a) tmall_rehearsal --scale 0.03 on
              configs/RAT_m2/tmall_x1_002 (601,164 train, 634,960 valid and
@@ -191,6 +207,7 @@ exits non-zero before printing either.
 
 import argparse
 import contextlib
+import copy
 import ctypes
 import glob
 import io
@@ -216,6 +233,7 @@ from rat_tpu_torch.data.io import load_arrays
 from rat_tpu_torch.data.loader import DataGenerator, retrieval_cache_path
 from rat_tpu_torch.data.synthetic import make_kkbox_like, make_mltag_like
 from rat_tpu_torch.engine import Trainer
+from rat_tpu_torch.engine.optim import get_learning_rate
 from rat_tpu_torch.engine.trainer import _gather_batch
 from rat_tpu_torch.features import FeatureEncoder, FeatureMap, preprocess
 from rat_tpu_torch.models import build_model
@@ -1243,6 +1261,270 @@ def step_split(trainer, train_gen, seed, reps=5):
     return split
 
 
+# the grouped phase: groups of the JAX package's default size; float32
+# bounds of a graphed run against the per-step run from the same state,
+# used where twice the spread of two per-step runs is smaller: step
+# losses within 2e-4 (test_fit_trajectory_matches_jax's tolerance for
+# float32 differences compounding over steps), every parameter and
+# buffer within 2 x lr = 2e-3 (Adam moves a coordinate by about lr a
+# step, so float32 noise that flips the sign of a near-zero gradient
+# coordinate moves it by up to 2 lr; a skipped or doubled batch moves
+# the later losses by more than 2e-4); eval predictions within 1e-6
+# (a few float32 ulps of a sigmoid output, should the capture's stream
+# get other cuBLAS kernels: the graph replays the same K1 and model)
+GROUP = 64
+GROUPED_LOSS_ATOL = 2e-4
+GROUPED_STATE_ATOL = 2e-3
+GROUPED_PRED_ATOL = 1e-6
+
+
+def _train_state(trainer):
+    """A copy of the trainer's weights and buffers, optimizer state and
+    dropout generator state."""
+    return ({k: v.detach().clone() for k, v in trainer.model.state_dict().items()},
+            copy.deepcopy(trainer.optimizer.state_dict()),
+            trainer.dropout_generator.get_state())
+
+
+def _set_train_state(trainer, state):
+    model, opt, gen = state
+    trainer.load_model_state(model)
+    trainer._load_optimizer_state(copy.deepcopy(opt))
+    trainer.dropout_generator.set_state(gen)
+
+
+def _host_batches(gen, seed, n):
+    order = gen.epoch_index_batches(rng=np.random.RandomState(seed))
+    return [b for b, _ in zip(order, range(n))]
+
+
+def _run_steps(trainer, batches, group, decay_at=None):
+    """Train on ``batches`` (host row ids, valid) from the trainer's state
+    over its train split: per step (``group`` 0: each batch's ids
+    uploaded with a blocking copy, as the per-step loop does) or in
+    groups through Trainer.train_scan (one pinned upload per group);
+    the LR plateau's decay (Trainer.lr_decay) after ``decay_at`` batches.
+    Returns (host losses, host ms per step, ending in a synchronize)."""
+    data, dev = trainer._train_data, trainer.device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    losses = []
+    cut = len(batches) if decay_at is None else decay_at
+    for k, part in enumerate((batches[:cut], batches[cut:])):
+        if k and decay_at is not None:
+            trainer.lr_decay()
+        if group:
+            losses += [trainer.train_scan(data, trainer._upload(np.stack([i for i, _ in g])),
+                                          [v for _, v in g])
+                       for g in (part[j:j + group] for j in range(0, len(part), group))]
+        else:
+            losses += [trainer.train_step(data, torch.from_numpy(i).to(dev), v)
+                       for i, v in part]
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    return torch.cat([x.reshape(-1) for x in losses]).cpu().numpy(), ms
+
+
+def _state_err(a, b):
+    """The largest |difference| over every weight and buffer of two state
+    dicts."""
+    return max(float((a[k].double() - b[k].double()).abs().max()) if a[k].numel() else 0.0
+               for k in a)
+
+
+def _window(trainer, batches, group, profiled):
+    """One more run of ``batches`` from the current state (the graph, if
+    any, already captured): host ms per step, and under torch.profiler
+    (device activity only) device ms per step and the idle share of the
+    window's wall time; None where the profiler saw no device time."""
+    if not profiled or trainer.device.type != "cuda":
+        return {"host_ms_per_step": _run_steps(trainer, batches, group)[1]}
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, ms = _run_steps(trainer, batches, group)
+    busy = sum(e.self_device_time_total for e in _device_events(prof.key_averages())) / 1e3
+    wall = ms * len(batches)
+    seen = busy > 0.05 * wall
+    return {"profiled_host_ms_per_step": ms,
+            "device_ms_per_step": busy / len(batches) if seen else None,
+            "idle_share": 1 - busy / wall if seen else None}
+
+
+def _eval_per_batch(trainer, gen, data):
+    """Scores of ``gen`` one batch per dispatch, each batch's ids uploaded
+    with a blocking copy and each batch's scores kept on the device until
+    the end (the per-step loop's eval); host float32."""
+    model, dev = trainer.model, trainer.device
+    model.eval()
+    preds = []
+    with torch.no_grad():
+        for idx, valid in gen.epoch_index_batches():
+            out = trainer._forward(data, torch.from_numpy(idx).to(dev))
+            preds.append(out["y_pred"][:valid, 0])
+    return torch.cat(preds).cpu().numpy()
+
+
+def grouped(trainer, train_gen, valid_gen, kk_trainer, kk_gen, seed, group=GROUP,
+            groups=2, kk_steps=8, window=GROUP):
+    """Grouped dispatch against per-step dispatch on the trainers of the
+    train (ML-Tag, fused path) and kkbox_train (module path, BatchNorm,
+    embedding dropout) phases, their uploaded splits and neighbours, no
+    new retrieval. From one saved state (weights, Adam, the dropout
+    generator): ``groups`` x ``group`` steps per step, again per step,
+    then grouped through Trainer.train_scan (on a card a CUDA graph of
+    the step's forward and backward, replayed, the optimizer stepping
+    after each; its first batch eager), each run with the LR plateau's
+    decay after its first group. Step losses and final weights and
+    buffers: the grouped run within the larger of twice the per-step
+    runs' spread and the float32 bounds above, at the same final LR. K1's launches in
+    the grouped run = depth x steps. Windows of ``window`` steps each way
+    for host ms per step, device ms per step and the idle share. The
+    valid split scored per batch and through Trainer.predict (grouped,
+    the eval graph), in turns: predictions within 1e-6, examples/s. The
+    KKBox trainer: ``kk_steps`` steps eagerly and as one graphed group
+    from one state (BatchNorm's statistics and the dropout masks in the
+    graph), or the gate's reason where the graph is closed. Every trainer
+    is put back in its saved state. Returns (results, the grouped runs'
+    launches)."""
+    cuda = trainer.device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    depth = trainer.model.depth
+    n = groups * group
+    batches = _host_batches(train_gen, seed, n + 2 * window)
+    state = _train_state(trainer)
+    runs = {}
+    for name, g in (("per_step_a", 0), ("per_step_b", 0), ("grouped", group)):
+        _set_train_state(trainer, state)
+        k1.launches = 0
+        losses, ms = _run_steps(trainer, batches[:n], g, decay_at=group)
+        runs[name] = {"losses": losses, "host_ms_per_step": ms, "k1": k1.launches,
+                      "lr": get_learning_rate(trainer.optimizer),
+                      "state": {k: v.detach().cpu().clone()
+                                for k, v in trainer.model.state_dict().items()}}
+    a, b, g = runs["per_step_a"], runs["per_step_b"], runs["grouped"]
+    graph = trainer._graphs.get("train")
+    replays = graph.replays if graph is not None else 0
+    spread = {"loss": float(np.abs(a["losses"] - b["losses"]).max()),
+              "state": _state_err(a["state"], b["state"])}
+    err = {"loss": float(np.abs(g["losses"] - a["losses"]).max()),
+           "state": _state_err(g["state"], a["state"])}
+    bound = {"loss": max(2 * spread["loss"], GROUPED_LOSS_ATOL),
+             "state": max(2 * spread["state"], GROUPED_STATE_ATOL)}
+    if len(g["losses"]) != n or not all(err[k] <= bound[k] for k in err) \
+            or g["lr"] != a["lr"]:
+        raise AssertionError("grouped: the grouped run differs from the per-step run by "
+                             "{} (bounds {}, per-step spread {})".format(err, bound, spread))
+    want_k1 = depth * n if cuda else 0
+    if g["k1"] != want_k1 or (cuda and replays != n - 1):
+        raise AssertionError("grouped: K1 launched {} times in {} replays, expected depth x "
+                             "steps = {} in {}".format(g["k1"], replays, want_k1, n - 1))
+    gate = trainer._graph_gate("train")
+    res = {"steps": n, "group": group, "graph": gate is None, "gate": gate,
+           "replays": replays, "k1_launches": g["k1"], "lr_after_decay": g["lr"],
+           "bit_equal": err["loss"] == 0 and err["state"] == 0,
+           "spread_per_step": spread, "grouped_vs_per_step": err, "bounds": bound,
+           "host_ms_per_step": {"per_step": a["host_ms_per_step"],
+                                "per_step_again": b["host_ms_per_step"],
+                                "grouped_with_capture": g["host_ms_per_step"]}}
+
+    # steady windows (the graph captured): in turns, then profiled
+    more = [batches[n:n + window], batches[n + window:]]
+    steady = {"per_step": [], "grouped": []}
+    for name, part in (("per_step", 0), ("grouped", 1), ("grouped", 1), ("per_step", 0)):
+        steady[name].append(_window(trainer, more[part], group if name == "grouped" else 0,
+                                    False)["host_ms_per_step"])
+    res["steady_host_ms_per_step"] = steady
+    res["profiled"] = {name: _window(trainer, more[0], grp, True)
+                       for name, grp in (("per_step", 0), ("grouped", group))}
+
+    # evaluation: per batch and grouped (the eval graph), in turns
+    data = trainer._valid_data
+    evals = {"per_batch": [], "grouped": []}
+    preds = {"per_batch": [], "grouped": []}
+    eval_k1 = 0
+    for name in ("per_batch", "grouped", "grouped", "per_batch"):
+        k1.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        if name == "per_batch":
+            pred = _eval_per_batch(trainer, valid_gen, data)
+        else:
+            pred = trainer.predict(valid_gen, data).astype(np.float32)
+        sync()
+        evals[name].append(len(pred) / (time.perf_counter() - t0))
+        if name == "grouped":
+            eval_k1 += k1.launches
+        if k1.launches != (depth * len(valid_gen) if cuda else 0):
+            raise AssertionError("grouped: eval {} launched K1 {} times".format(
+                name, k1.launches))
+        preds[name].append(pred)
+    want = preds["per_batch"][0]
+    pred_err = max(float(np.abs(p - want).max()) for p in preds["grouped"] + preds["per_batch"])
+    if any(p.shape != want.shape for p in preds["grouped"]) or pred_err > GROUPED_PRED_ATOL:
+        raise AssertionError("grouped: grouped eval predictions differ from per-batch "
+                             "ones by {}".format(pred_err))
+    res["eval"] = {"rows": valid_gen.num_samples, "batches": len(valid_gen),
+                   "examples_per_s": evals, "pred_max_abs_err": pred_err,
+                   "pred_bit_equal": pred_err == 0.0,
+                   "graph": trainer._graph_gate("eval") is None}
+    _set_train_state(trainer, state)
+
+    # KKBox's module path: BatchNorm and dropout masks in the graph
+    kk_state = _train_state(kk_trainer)
+    kk_batches = _host_batches(kk_gen, seed, kk_steps)
+    kk = {}
+    for name, g_size in (("eager", 0), ("grouped", kk_steps)):
+        _set_train_state(kk_trainer, kk_state)
+        losses, ms = _run_steps(kk_trainer, kk_batches, g_size)
+        kk[name] = {"losses": losses, "ms": ms,
+                    "state": {k: v.detach().cpu().clone()
+                              for k, v in kk_trainer.model.state_dict().items()},
+                    "generator": kk_trainer.dropout_generator.get_state()}
+    kk_gate = kk_trainer._graph_gate("train")
+    kk_err = {"loss": float(np.abs(kk["grouped"]["losses"] - kk["eager"]["losses"]).max()),
+              "state": _state_err(kk["grouped"]["state"], kk["eager"]["state"])}
+    if kk_err["loss"] > GROUPED_LOSS_ATOL or kk_err["state"] > GROUPED_STATE_ATOL:
+        raise AssertionError("grouped: the KKBox group differs from its eager steps by "
+                             "{}".format(kk_err))
+    res["kkbox"] = {"steps": kk_steps, "graph": kk_gate is None, "gate": kk_gate,
+                    "dropout": kk_trainer._has_dropout(),
+                    "batch_norm": bool(kk_trainer.model.batch_norm),
+                    "grouped_vs_eager": kk_err,
+                    "bit_equal": kk_err["loss"] == 0 and kk_err["state"] == 0,
+                    "generator_state_equal": bool(torch.equal(kk["grouped"]["generator"],
+                                                              kk["eager"]["generator"])),
+                    "host_ms_per_step": {k: v["ms"] for k, v in kk.items()}}
+    _set_train_state(kk_trainer, kk_state)
+    return res, {"cross_intra_block": g["k1"] + eval_k1, "bm25_topk": 0}
+
+
+def print_grouped(res):
+    """The grouped phase's figures, one line each way."""
+    host, prof = res["steady_host_ms_per_step"], res["profiled"]
+
+    def fmt(x):
+        return "not measured" if x is None else "{:.3f}".format(x)
+    for name in ("per_step", "grouped"):
+        print("grouped train {} (ML-Tag fused, windows of {} steps): host ms per step "
+              "{} (in turns), device ms per step {}, idle share {} (profiled window, host "
+              "{:.3f} ms per step)".format(
+                  name, GROUP, " / ".join("{:.3f}".format(x) for x in host[name]),
+                  fmt(prof[name].get("device_ms_per_step")), fmt(prof[name].get("idle_share")),
+                  prof[name].get("profiled_host_ms_per_step", float("nan"))))
+    ev = res["eval"]["examples_per_s"]
+    print("grouped eval ({} rows): examples/s per batch {} | grouped {}; predictions max "
+          "|diff| {:.3e}".format(res["eval"]["rows"], " / ".join("{:.0f}".format(x)
+                                                                 for x in ev["per_batch"]),
+                                 " / ".join("{:.0f}".format(x) for x in ev["grouped"]),
+                                 res["eval"]["pred_max_abs_err"]))
+    kk = res["kkbox"]
+    print("grouped kkbox ({} steps, BatchNorm {}, dropout {}): {}; against eager {}".format(
+        kk["steps"], kk["batch_norm"], kk["dropout"],
+        "graphed" if kk["graph"] else "no graph, the gate: " + str(kk["gate"]),
+        json.dumps(kk["grouped_vs_eager"])))
+
+
 # RAT_m0, RAT_m1 and RAT_m3 at the widths and settings of their ML-Tag
 # configs (configs/RAT_m{0,1,3}/movielenslatest_x1/model_config.yaml):
 # the ML-Tag RAT_m2 settings, without the fused path switch
@@ -1950,8 +2232,17 @@ def _repo_env(**extra):
         [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]), **extra)
 
 
-BENCH_STEPS = {"mltag": {"warmup": 16, "steps": 64}, "kkbox": {"warmup": 4, "steps": 8},
-               "tmall": {"warmup": 4, "steps": 8}}
+BENCH_STEPS = {"mltag": {"warmup": 64, "steps": 64}, "kkbox": {"warmup": 8, "steps": 8},
+               "tmall": {"warmup": 8, "steps": 8}}
+
+
+def bench_train_steps(warmup, steps, group=64):
+    """(warm-up steps, steps per window) that benchmark.bench_train runs:
+    groups of min(group, steps), at least one of warm-up."""
+    group = min(group, steps)
+    if group <= 1:
+        return warmup, steps
+    return max(1, warmup // group) * group, steps // group * group
 
 
 def bench(device, batch_size=4096, n_rows=200_000, steps=BENCH_STEPS, eval_steps=100,
@@ -1973,7 +2264,8 @@ def bench(device, batch_size=4096, n_rows=200_000, steps=BENCH_STEPS, eval_steps
         return lambda: benchmark.bench_train(use_pallas, shape=shape, batch_size=batch_size,
                                              n_rows=n_rows, device=device, **steps[shape])
 
-    fused_k1 = depth * (steps["mltag"]["warmup"] + 3 * steps["mltag"]["steps"])
+    warm, window = bench_train_steps(**steps["mltag"])
+    fused_k1 = depth * (warm + 3 * window)
     # (name, bench, K1 launches, K2 launches) on a card: K1 only on the
     # fused ML-Tag path (the KKBox and Tmall shapes have BatchNorm, which
     # closes the fused gate, and the eval bench runs the module path, as
@@ -3007,6 +3299,15 @@ def main(argv=None):
                                label="kkbox_train")
         steady["step_split_device_ms"] = step_split(kk_trainer, kk_gen, args.seed)
         print("kkbox_train steady state: " + json.dumps(steady))
+        t0 = time.perf_counter()
+        res, grouped_launches = grouped(trainer, train_gen, trainer.valid_gen, kk_trainer,
+                                        kk_gen, args.seed)
+        print("grouped: " + json.dumps(res))
+        print_grouped(res)
+        print("grouped launches (asserted: K1 = depth x steps of the graphed run + depth x "
+              "valid batches in each of the 2 grouped evaluations): "
+              + json.dumps(grouped_launches))
+        print("grouped phase: {:.1f} s".format(time.perf_counter() - t0))
         del kk_trainer, kk_gen, kk_train, kk_valid
         torch.cuda.empty_cache()
 
@@ -3077,7 +3378,8 @@ def main(argv=None):
           + json.dumps(exm_launches))
 
     t0 = time.perf_counter()
-    print("bench: in-process steps (warm-up, window) {}; eval 100 steps; retrieval "
+    print("bench: in-process steps (warm-up, window; in groups of up to 64 steps) {}; "
+          "eval 100 steps; retrieval "
           "200,000 pool rows x 100,000 queries".format(json.dumps(BENCH_STEPS)))
     _, bench_launches, _ = bench(device)
     print("bench launches (asserted per bench: K1 = depth x (warm-up + 3 x window) on "
@@ -3136,7 +3438,8 @@ def main(argv=None):
           "launch none in this process): " + json.dumps(scripts_launches))
     print("scripts phase: {:.1f} s".format(time.perf_counter() - t0))
     by_path = {"serve": serve_launches, "train": train_launches,
-               "kkbox_train": kkbox_launches, "variants": variant_launches,
+               "kkbox_train": kkbox_launches, "grouped": grouped_launches,
+               "variants": variant_launches,
                "cli": cli_launches,
                "blocks": {k: block_launches["a"][k] + block_launches["b"][k]
                           for k in block_launches["a"]},

@@ -11,10 +11,12 @@ Usage (on card 0; RAT_TPU_PLATFORM=cpu asks for the CPU):
   python -m rat_tpu_torch.cli.benchmark --bench scaling --devices 2
   python -m rat_tpu_torch.cli.benchmark --bench suite        # scaling over every card
 
-The train bench times ``Trainer.train_step`` one step at a time. The
-JAX package times groups of steps scanned into one dispatch
-(``group``), which cuts JAX's per-dispatch cost; the port runs a plain
-step loop, as its Trainer does, so there is no group. Every bench
+The train bench times the production train path, as the JAX package's
+does: groups of ``group`` steps (64), each one ``Trainer.train_scan``
+dispatch, which on a card replays a CUDA graph of the train step's
+forward and backward per batch (engine/step_graph.py); ``group`` of 1
+or less times
+``Trainer.train_step`` one step at a time. Every bench
 runs on the card unless given ``device="cpu"``, and raises without a
 card otherwise. ``--suite`` prints an error line for a bench that
 raises and then exits non-zero; its scaling bench runs over every card
@@ -171,24 +173,42 @@ def _bench_setup(shape="mltag", use_pallas=False, batch_size=4096, n_idx=16,
 
 
 def bench_train(use_pallas=False, steps=512, warmup=64, shape="mltag",
-                batch_size=4096, n_rows=200_000, device=None):
-    """Examples/s of the train step (loss, backward, clip, Adam) over
-    the 16 index batches in turn: ``warmup`` steps, then the best of 3
-    windows of ``steps`` steps, each ended by a synchronize and a
-    ``.item()`` of its last loss."""
+                batch_size=4096, n_rows=200_000, device=None, group=64):
+    """Examples/s of the production train path over the 16 index batches
+    in turn: groups of ``group`` steps (loss, backward, clip, Adam; at
+    most ``steps``), one ``Trainer.train_scan`` dispatch each, as the
+    JAX package's bench times its scanned groups; ``max(1, warmup //
+    group)`` groups of warm-up, then the best of 3 windows of ``steps //
+    group`` groups, each ended by a synchronize and a ``.item()`` of its
+    last loss. With
+    ``group`` of 1 or less the steps run one ``train_step`` at a time
+    (``warmup`` steps, then windows of ``steps``)."""
     trainer, data, idx, B = _bench_setup(shape, use_pallas, batch_size,
                                          n_rows=n_rows, device=device)
     dev = trainer.device
-    for i in range(warmup):
-        loss = trainer.train_step(data, idx[i % len(idx)], B)
-    _sync(dev)
+    group = min(group, steps)
+    if group > 1:
+        idx_group = torch.stack([idx[i % len(idx)] for i in range(group)])
+        valid_group = [B] * group
+
+        def run(n):
+            for _ in range(n // group):
+                loss = trainer.train_scan(data, idx_group, valid_group)[-1]
+            return loss
+        warmup, steps = max(1, warmup // group) * group, steps // group * group
+    else:
+        def run(n):
+            for i in range(n):
+                loss = trainer.train_step(data, idx[i % len(idx)], B)
+            return loss
     if warmup:
+        loss = run(warmup)
+        _sync(dev)
         float(loss.item())
     rates = []
     for _ in range(3):
         tic = time.perf_counter()
-        for i in range(steps):
-            loss = trainer.train_step(data, idx[i % len(idx)], B)
+        loss = run(steps)
         _sync(dev)
         float(loss.item())
         rates.append(steps * B / (time.perf_counter() - tic))

@@ -46,10 +46,16 @@
 // - Persistent CTAs: the grid is the number of CTAs that fit on the card
 //   (at most one per 8 samples), and each warp walks over samples, so
 //   the weights are staged once per CTA.
+// - The grid of a block shape is found once per device (the SM count,
+//   the shared-memory attribute and the occupancy query) and cached, so
+//   that a launch makes no other runtime call than the kernel's: legal
+//   inside a CUDA graph's capture, and cheap on the host.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <cmath>
+#include <mutex>
+#include <vector>
 
 namespace {
 
@@ -563,12 +569,52 @@ cudaError_t with_kernel(const Dims& Dm, const Plan& p, Fn&& fn) {
                   : fn(cross_intra_block_kernel<40, 10, false>);
 }
 
+// The kernel's dynamic shared memory may reach the opt-in maximum (every
+// plan fits under it, so shapes that share a kernel never lower each
+// other's limit); the occupancy is that of the plan's own bytes.
 template <typename K>
 cudaError_t ctas_per_sm(K kernel, const Plan& p, int* per_sm) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         p.smem);
+                                         kMaxSmemBytes);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, 32 * p.warps, p.smem);
+}
+
+// The most CTAs of a block shape that are resident on a device at once.
+struct GridCap {
+  int dev, t, s, d, heads, dh, hidden, project_out, ctas;
+};
+
+std::mutex grid_caps_mutex;
+std::vector<GridCap> grid_caps;
+
+// *ctas for the shape on the current device: queried at the shape's
+// first launch there, read from the cache after.
+template <typename K>
+cudaError_t resident_ctas(K kernel, const Dims& Dm, const Plan& p, int* ctas) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const GridCap key{dev, Dm.t, Dm.s, Dm.d, Dm.heads, Dm.dh, Dm.hidden, Dm.project_out, 0};
+  std::lock_guard<std::mutex> lock(grid_caps_mutex);
+  for (const GridCap& c : grid_caps) {
+    if (c.dev == key.dev && c.t == key.t && c.s == key.s && c.d == key.d &&
+        c.heads == key.heads && c.dh == key.dh && c.hidden == key.hidden &&
+        c.project_out == key.project_out) {
+      *ctas = c.ctas;
+      return cudaSuccess;
+    }
+  }
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = ctas_per_sm(kernel, p, &per_sm);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  GridCap entry = key;
+  entry.ctas = per_sm * sms;
+  grid_caps.push_back(entry);
+  *ctas = entry.ctas;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -612,18 +658,12 @@ int cross_intra_block_launch(const void* x_in, void* x_out, int B, int t, int s,
   const float* const* w = reinterpret_cast<const float* const*>(weights);
   const Weights W{w[0], w[1], w[2], w[3], w[4], w[5], w[6],
                   w[7], w[8], w[9], w[10], w[11], w[12], w[13]};
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
   return (int)with_kernel(Dm, p, [&](auto kernel, auto... extra) {
-    int per_sm = 0;
-    cudaError_t e = ctas_per_sm(kernel, p, &per_sm);
+    int ctas = 0;
+    cudaError_t e = resident_ctas(kernel, Dm, p, &ctas);
     if (e != cudaSuccess) return e;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
     const int need = (B + p.warps - 1) / p.warps;
-    const int grid = need < per_sm * sms ? need : per_sm * sms;
+    const int grid = need < ctas ? need : ctas;
     kernel<<<grid, 32 * p.warps, p.smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(x_in), static_cast<float*>(x_out), B, Dm, W, extra...);
     return cudaGetLastError();

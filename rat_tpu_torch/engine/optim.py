@@ -23,6 +23,11 @@ Semantics, as in the JAX package:
 - the learning rate lives in the optimizer's ``param_groups``, so the
   LR-on-plateau schedule can decay it without rebuilding the state, as
   ``optax.inject_hyperparams`` lets the JAX package.
+
+A CUDA graph of the train step (engine/step_graph.py) holds its forward
+and backward only: ``step()`` (the clip, then the rule) runs eagerly
+after each replay, so the rate and the step count stay host values, read
+at every step, and a graphed step does the per-step path's arithmetic.
 """
 
 import torch

@@ -32,9 +32,22 @@ dict, buffers included. Batch order comes from the Trainer's own
 same batches. Step losses and predictions stay on the device until the
 epoch or the split is done, then come back in one copy.
 
-The JAX package's grouped ``lax.scan`` train dispatch is a way to cut
-JAX dispatch cost; here a plain loop takes its place. The full train
-state (``save_train_state``/``restore_train_state``, engine/checkpoint.py)
+Dispatch is grouped, as in the JAX package (trainer.py:689-966): the
+train loop buffers ``train_scan_batches`` batches (default 64; the
+environment variable RAT_TPU_TRAIN_SCAN_BATCHES overrides the key, and
+1 or less runs the per-step loop) and dispatches them with one [G, B]
+index upload (pinned, non-blocking on a card); a group never spans an
+evaluation boundary or a change of device split, and the batches before
+such a boundary that do not fill a group take the per-step program.
+Evaluation groups 64 batches per dispatch and keeps at most 8 groups in
+flight before it fetches the oldest. On a card a full group replays a
+CUDA graph of the train step's forward and backward, the optimizer
+stepping eagerly after each replay, and an eval group one of the eval
+forward (engine/step_graph.py), K1 inside, unless :meth:`Trainer.
+_graph_gate` says why not (the CPU, a mesh, ``dedup_neighbors``, a
+profiling epoch, dropout without ``register_generator_state``); those
+runs group their dispatch all the same and run each step eagerly. A
+profiling epoch runs per step. The full train state (``save_train_state``/``restore_train_state``, engine/checkpoint.py)
 resumes a run exactly. ``profile_dir`` writes a torch.profiler trace of
 steps 2 to 2 + ``profile_steps`` of the first epoch. ``dedup_neighbors``
 (or RAT_TPU_DEDUP_NEIGHBORS=1) gathers each batch's pool rows once per
@@ -75,6 +88,7 @@ import logging
 import os
 import time
 import weakref
+from collections import deque
 
 import numpy as np
 import torch
@@ -84,12 +98,13 @@ from ..data.block_loader import DataBlockGenerator
 from ..metrics import evaluate_metrics
 from ..models import build_model, rat_m2_fast_forward
 from ..nn.embedding import PackedEmbedding
-from ..nn.layers import set_batch_norm_group, set_dropout_generator
+from ..nn.layers import Dropout, set_batch_norm_group, set_dropout_generator
 from ..parallel import (from_rank0, is_row_sharded, on_rank0, process_local_rows,
                         shard_range)
 from ..utils import Monitor, resolve_device
 from .optim import (get_learning_rate, get_optimizer, regularization_loss,
                     set_learning_rate)
+from .step_graph import StepGraph
 
 
 def _bce(pred, target):
@@ -143,6 +158,29 @@ def _gather_batch(data, idx, dedup_neighbors=False):
     if Xf is not None:
         Xf = torch.cat([Xf[:, None, :], pool_rows(data["pool_numeric"])], dim=1)
     return X, y, Xf, nmask
+
+
+def _fetch_async(group):
+    """Start copying an eval group's (y_pred, y_true, valid counts) to
+    the host; on a card into pinned memory, without waiting."""
+    pred, true, valids = group
+    both = torch.stack([pred, true])
+    if both.device.type != "cuda":
+        return both, None, valids
+    host = both.to("cpu", non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done, valids
+
+
+def _fetched(pending):
+    """Wait for a copy started by :func:`_fetch_async`; returns host
+    (y_pred [n, B], y_true [n, B], valid counts) as numpy."""
+    host, done, valids = pending
+    if done is not None:
+        done.synchronize()
+    host = host.numpy()
+    return host[0], host[1], valids
 
 
 class _ResidentBytes(object):
@@ -229,6 +267,8 @@ class Trainer(object):
         self._shuffle_rng = np.random.RandomState(params.get("seed", 2021))
         self._optimizer = None
         self._resumed = None
+        #: the captured step of each kind ("train", "eval"), see _graph
+        self._graphs = {}
         #: every train step's loss, in order, filled at each epoch's end
         self.step_losses = []
         #: each epoch's seconds, its evaluations included
@@ -329,8 +369,9 @@ class Trainer(object):
     # ---- training ---------------------------------------------------------
     def loss_and_grads(self, data, idx, valid):
         """Forward and backward of one batch in training mode (idx: [B]
-        device row ids, the first ``valid`` real; under a mesh the GLOBAL
-        batch, of which this rank runs its slice). The padded rows enter
+        device row ids, the first ``valid`` real, an int or a float32
+        device scalar; under a mesh the GLOBAL batch, of which this rank
+        runs its slice). The padded rows enter
         BatchNorm's batch statistics, as in the JAX package, but not the
         loss. The gradients of the total loss, regularizer included, are
         left in each parameter's ``.grad`` (under a mesh, summed over the
@@ -345,7 +386,10 @@ class Trainer(object):
         target = out["y_true"][:, 0]
         rows = torch.arange(pred.shape[0], device=pred.device) + offset
         mask = (rows < valid).to(pred.dtype)
-        loss = torch.sum(self._loss_fn(pred, target) * mask) / valid
+        # times the float32 reciprocal of the count: the same number
+        # whether ``valid`` is an int (a per-step call) or a device
+        # scalar (a captured step), where a division would differ
+        loss = torch.sum(self._loss_fn(pred, target) * mask) * (1.0 / valid)
         if self.mesh is None:
             loss = loss + regularization_loss(self.model.named_parameters(),
                                               self._embedding_regularizer,
@@ -391,18 +435,19 @@ class Trainer(object):
         return loss
 
     def _block_stream(self, views, rng=None):
-        """(device data, row ids, valid count) for every batch of every
-        block view, one block on the device at a time: a view is
+        """(device data, row ids, valid count, last) for every batch of
+        every block view, one block on the device at a time: a view is
         uploaded when its first batch is asked for, and the last batch
-        hands the caller the only reference to its buffers, so that the
-        block is freed when the caller drops it, before the next upload.
-        Row orders are drawn from ``rng`` block by block, after each
-        block is loaded, as in the JAX package."""
+        (``last`` True) hands the caller the only reference to its
+        buffers, so that the block is freed when the caller drops it,
+        before the next upload. Row orders are drawn from ``rng`` block
+        by block, after each block is loaded, as in the JAX package."""
         for view in views:
             box = [self.device_split(view, share_pool=False)]
             batches = list(view.epoch_index_batches(rng=rng))
             for i, (idx, valid) in enumerate(batches):
-                yield (box.pop() if i == len(batches) - 1 else box[0]), idx, valid
+                last = i == len(batches) - 1
+                yield (box.pop() if last else box[0]), idx, valid, last
 
     def _epoch_stream(self, train_gen):
         if self._block_mode:
@@ -410,7 +455,7 @@ class Trainer(object):
                 train_gen.iter_block_views(rng=self._shuffle_rng), self._shuffle_rng)
         if self._train_data is None:
             self._train_data = self.device_split(train_gen)
-        return ((self._train_data, idx, valid) for idx, valid in
+        return ((self._train_data, idx, valid, False) for idx, valid in
                 train_gen.epoch_index_batches(rng=self._shuffle_rng))
 
     def _eval_stream(self, data_gen, data=None):
@@ -418,7 +463,7 @@ class Trainer(object):
             return self._block_stream(data_gen.iter_block_views())
         if data is None:
             data = self.device_split(data_gen)
-        return ((data, idx, valid) for idx, valid in data_gen.epoch_index_batches())
+        return ((data, idx, valid, False) for idx, valid in data_gen.epoch_index_batches())
 
     def fit(self, train_gen, validation_data=None, epochs=1):
         """Train for ``epochs``. A DataBlockGenerator train split streams
@@ -426,6 +471,7 @@ class Trainer(object):
         split under ``lazy_valid_upload``, is uploaded per evaluation."""
         self.valid_gen = validation_data
         self._block_mode = isinstance(train_gen, DataBlockGenerator)
+        self._graphs = {}    # a graph of an earlier fit holds its splits
         lazy_valid = bool(self.params.get("lazy_valid_upload", False))
         self._valid_data = None if (lazy_valid or isinstance(
             validation_data, DataBlockGenerator)) else self.device_split(validation_data)
@@ -457,21 +503,112 @@ class Trainer(object):
         self.model.eval()
         logging.info("Training finished.")
 
+    #: train batches per grouped dispatch (the JAX package's
+    #: ``_TRAIN_SCAN_BATCHES``); config key ``train_scan_batches``, env
+    #: RAT_TPU_TRAIN_SCAN_BATCHES over it, 1 or less for the per-step loop
+    _TRAIN_SCAN_BATCHES = 64
+
+    def _train_group_size(self):
+        """Batches per grouped train dispatch; 0 runs the per-step loop."""
+        env = os.environ.get("RAT_TPU_TRAIN_SCAN_BATCHES")
+        g = int(env) if env is not None else \
+            int(self.params.get("train_scan_batches", self._TRAIN_SCAN_BATCHES))
+        return g if g > 1 else 0
+
+    def _has_dropout(self):
+        return any(isinstance(m, Dropout) and m.p > 0 for m in self.model.modules())
+
+    def _graph_gate(self, kind="train", profiling=False):
+        """None when the grouped loops replay a CUDA graph of the ``kind``
+        ("train" or "eval") step, else why they run it eagerly: the CPU;
+        a mesh (its collectives are not captured); ``dedup_neighbors``
+        (``torch.unique``'s output size is a host sync); and for training
+        a profiling epoch (it runs per step) and dropout where this torch
+        cannot register a generator with a graph."""
+        if self.device.type != "cuda":
+            return "the CPU"
+        if self.mesh is not None:
+            return "a mesh"
+        if self._dedup:
+            return "dedup_neighbors"
+        if kind == "train":
+            if profiling:
+                return "a profiling epoch"
+            if self._has_dropout() and not hasattr(torch.cuda.CUDAGraph,
+                                                   "register_generator_state"):
+                return "dropout without CUDAGraph.register_generator_state"
+        return None
+
+    def _graph(self, kind, data, batch_size):
+        """The ``kind`` step's graph over ``data``, captured anew when it
+        is missing or was captured over another split, on the other
+        path (fused or module) or in the other mode."""
+        key = (self._use_fast_forward(), self.model.training, batch_size)
+        graph = self._graphs.get(kind)
+        if graph is None or graph.key != key or graph.data is not data:
+            self._graphs.pop(kind, None)     # free the old one's pool first
+            graph = self._graphs[kind] = StepGraph(self, kind, data, batch_size, key)
+        return graph
+
+    def _upload(self, array):
+        """A host array on the device in one copy, pinned and
+        non-blocking on a card."""
+        t = torch.from_numpy(np.ascontiguousarray(array))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    def train_scan(self, data, idx_group, valid_group):
+        """G train steps in one dispatch, the counterpart of the JAX
+        package's ``train_scan``: ``idx_group`` [G, B] device row ids,
+        ``valid_group`` G valid counts. With the graph gate open the
+        graph of the step's forward and backward is replayed per batch,
+        the optimizer stepping eagerly after each (a new graph's first
+        batch runs eagerly whole), else each batch takes the per-step
+        program.
+        Returns the [G] losses on the device."""
+        self.model.train()
+        if self._graph_gate("train") is None:
+            valids = self._upload(np.asarray(valid_group, np.float32))
+            graph = self._graph("train", data, idx_group.shape[1])
+            return graph.run(idx_group, valids)[0]
+        return torch.stack([self.train_step(data, idx_group[i], int(v))
+                            for i, v in enumerate(valid_group)])
+
     def train_one_epoch(self, train_gen, epoch):
         """Returns (epoch loss, examples, seconds). The epoch loss divides
         by the FULL batch count even when early stop cuts the epoch
         short (the reference's denominator, base_model.py:226-228). With
         ``profile_dir``, steps 2 to 2 + ``profile_steps`` of the first
-        epoch are traced."""
+        epoch are traced, one step per dispatch."""
+        profiling = self._profile_dir is not None and epoch == 0
+        group = 0 if profiling else self._train_group_size()
+        reason = self._graph_gate("train", profiling)
+        logging.info("Train dispatch: %s", "per step" if not group else
+                     "groups of {} batches, {}".format(
+                         group, "step graph replayed" if reason is None
+                         else "no step graph ({})".format(reason)))
+        self.model.train()
+        tic = time.time()
+        if group:
+            losses, examples = self._train_one_epoch_grouped(train_gen, group)
+        else:
+            losses, examples = self._train_one_epoch_stepwise(train_gen, epoch)
+        step_losses = torch.cat([x.reshape(-1) for x in losses]).cpu().numpy()
+        self.step_losses.extend(step_losses.tolist())
+        epoch_secs = time.time() - tic
+        # a float32 running sum, as the JAX package's
+        return float(sum(step_losses)) / self._batches_per_epoch, examples, epoch_secs
+
+    def _train_one_epoch_stepwise(self, train_gen, epoch):
+        """One step per dispatch; returns (loss tensors, examples)."""
         losses = []
         examples = 0
-        tic = time.time()
-        self.model.train()
         profiler = None
         batch_index = 0
         # no enumerate(): its cached result tuple would keep the last
         # block's buffers alive into the evaluation
-        for data, idx, valid in self._epoch_stream(train_gen):
+        for data, idx, valid, _ in self._epoch_stream(train_gen):
             if self._profile_dir is not None and epoch == 0 and batch_index == 2:
                 profiler = self._start_profile()
             idx = torch.from_numpy(idx).to(self.device)
@@ -486,11 +623,74 @@ class Trainer(object):
                 break
         if profiler is not None:
             self._stop_profile(profiler)
-        step_losses = torch.stack(losses).cpu().numpy()
-        self.step_losses.extend(step_losses.tolist())
-        epoch_secs = time.time() - tic
-        # a float32 running sum, as the JAX package's
-        return float(sum(step_losses)) / self._batches_per_epoch, examples, epoch_secs
+        return losses, examples
+
+    def _train_one_epoch_grouped(self, train_gen, group):
+        """Per-step semantics at grouped dispatch cost, by the JAX
+        package's rules (trainer.py:758-833): batches are buffered and a
+        full group is dispatched as one :meth:`train_scan`; a group never
+        spans an evaluation boundary (evaluate() sees the state right
+        after the boundary batch) or a change of device split (a block
+        is released after its last batch); the batches before a boundary
+        that do not fill a group take the per-step program; then
+        ``on_batch_end`` runs per batch, and early stop breaks at the
+        same batch as per step. Returns (loss tensors, examples)."""
+        losses = []
+        examples = 0
+        tic = last_beat = time.time()
+        n_epoch, every_x = self._batches_per_epoch, self._every_x_batches
+        pend = []          # buffered (idx, valid)
+        cur = None         # the device split they gather from
+        dispatched = 0     # batches dispatched this epoch
+
+        def finalize(release):
+            """Dispatch the buffer, drop the split if ``release``, then
+            run the per-batch bookkeeping."""
+            nonlocal pend, cur, dispatched, examples, last_beat
+            if not pend:
+                return
+            idx = self._upload(np.stack([i for i, _ in pend]).astype(np.int64))
+            valids = [v for _, v in pend]
+            if len(pend) == group:
+                losses.append(self.train_scan(cur, idx, valids))
+            else:
+                losses.extend(self.train_step(cur, idx[i], v) for i, v in enumerate(valids))
+            del idx
+            if release:
+                cur = None
+                self._graphs.pop("train", None)
+            examples += sum(valids)
+            n, pend = len(pend), []
+            base, dispatched = dispatched, dispatched + n
+            now = time.time()
+            if now - last_beat >= 60.0:
+                # a heartbeat, so that a long silent epoch is told from a
+                # wedged one
+                last_beat = now
+                logging.info("epoch progress: %d/%d batches dispatched "
+                             "(%.0f examples/s dispatch-side)", dispatched, n_epoch,
+                             examples / max(now - tic, 1e-9))
+            for i in range(n):
+                self.on_batch_end(base + i)
+                if self._stop_training:
+                    break
+
+        for data, idx, valid, last in self._epoch_stream(train_gen):
+            if pend and data is not cur:
+                finalize(True)
+            if self._stop_training:
+                break
+            cur = data
+            del data
+            pend.append((idx, valid))
+            b = dispatched + len(pend) - 1     # this batch's index in the epoch
+            if last or len(pend) == group or (b + 1) % every_x == 0 \
+                    or (b + 1) % n_epoch == 0:
+                finalize(last)
+                if self._stop_training:
+                    break
+        finalize(True)
+        return losses, examples
 
     def _start_profile(self):
         from torch.profiler import ProfilerActivity, profile
@@ -554,26 +754,91 @@ class Trainer(object):
             self.save_weights(self.checkpoint)
 
     # ---- evaluation -------------------------------------------------------
+    #: eval batches per grouped dispatch (the JAX package's)
+    _EVAL_SCAN_BATCHES = 64
+
+    def _eval_dispatch(self, data_gen, data=None):
+        """Dispatch the whole set asynchronously, ``_EVAL_SCAN_BATCHES``
+        batches per group, with one index upload per group; a group never
+        spans two device splits. Yields (y_pred [n, B'], y_true [n, B']
+        on the device, the n valid counts) per group, B' being this
+        rank's slice under a mesh. With the graph gate open each batch
+        replays the eval forward's graph (a new graph's first batch runs
+        eagerly), else runs it eagerly."""
+        group = self._EVAL_SCAN_BATCHES
+        graphed = self._graph_gate("eval") is None
+        cur, ids, valids = None, [], []
+
+        def flush(release):
+            nonlocal cur
+            idx = self._upload(np.stack(ids).astype(np.int64))
+            if graphed:
+                pred, true = self._graph("eval", cur, idx.shape[1]).run(idx)
+            else:
+                outs = [self._forward(cur, row if self.mesh is None
+                                      else process_local_rows(row, self.mesh))
+                        for row in idx]
+                pred = torch.stack([o["y_pred"][:, 0] for o in outs])
+                true = torch.stack([o["y_true"][:, 0] for o in outs])
+            if release:
+                cur = None
+                self._graphs.pop("eval", None)
+            return pred, true, list(valids)
+
+        for split_data, idx, valid, last in self._eval_stream(data_gen, data):
+            if ids and split_data is not cur:
+                yield flush(True)
+                ids, valids = [], []
+            cur = split_data
+            del split_data
+            ids.append(idx)
+            valids.append(valid)
+            if last or len(ids) == group:
+                yield flush(last)
+                ids, valids = [], []
+        if ids:
+            yield flush(False)
+
+    #: dispatched eval groups pending before the oldest is fetched (the
+    #: JAX package's): bounds the host and device memory they pin while
+    #: the device stays several groups ahead of the host
+    _EVAL_MAX_INFLIGHT_GROUPS = 8
+
     @torch.no_grad()
     def _eval_collect(self, data_gen, data=None):
         """Score every batch in eval mode (a DataBlockGenerator block by
-        block); returns host (y_pred, y_true) float32."""
+        block) through :meth:`_eval_dispatch`, each group's copy to the
+        host started when it is dispatched and waited for when more than
+        ``_EVAL_MAX_INFLIGHT_GROUPS`` are pending, oldest first; returns
+        host (y_pred, y_true) float32 of the valid rows."""
         training = self.model.training
         self.model.eval()
-        preds, trues, valids = [], [], []
-        for split_data, idx, valid in self._eval_stream(data_gen, data):
-            idx = torch.from_numpy(idx).to(self.device)
-            valids.append(valid)
+        pending = deque()
+        preds, trues, groups = [], [], []
+
+        def drain_one():
+            pred, true, valids = _fetched(pending.popleft())
+            for i, v in enumerate(valids):
+                preds.append(pred[i][:v])
+                trues.append(true[i][:v])
+
+        for group in self._eval_dispatch(data_gen, data):
             if self.mesh is not None:
-                idx, valid = process_local_rows(idx, self.mesh), None
-            out = self._forward(split_data, idx)
-            del split_data
-            preds.append(out["y_pred"][:valid, 0])
-            trues.append(out["y_true"][:valid, 0])
+                groups.append(group)     # gathered over the data group below
+                continue
+            pending.append(_fetch_async(group))
+            if len(pending) > self._EVAL_MAX_INFLIGHT_GROUPS:
+                drain_one()
+        while pending:
+            drain_one()
         self.model.train(training)
+        if data is None or data is not getattr(self, "_valid_data", None):
+            self._graphs.pop("eval", None)    # its split is this call's own
         if self.mesh is None:
-            return torch.cat(preds).cpu().numpy(), torch.cat(trues).cpu().numpy()
-        return self._gather_predictions(preds, trues, valids)
+            return np.concatenate(preds), np.concatenate(trues)
+        return self._gather_predictions([p for g in groups for p in g[0]],
+                                        [t for g in groups for t in g[1]],
+                                        [v for g in groups for v in g[2]])
 
     def _gather_predictions(self, preds, trues, valids):
         """Every data rank's [per] slices of each batch, all-gathered in
@@ -639,6 +904,7 @@ class Trainer(object):
         state = dict(state)
         for _, name, _, lo, shape in self._sharded_slots():
             state[name] = state[name][lo: lo + shape[0]]
+        self._graphs = {}
         self.model.load_state_dict(state)
 
     def _optimizer_state(self):

@@ -30,8 +30,13 @@ PARAM_ORDER = ("ln1_scale", "ln1_bias", "w_qkv1", "w_out1", "b_out1",
                "ln2_scale", "ln2_bias", "w_qkv2", "w_out2", "b_out2",
                "ff_w1", "ff_b1", "ff_w2", "ff_b2")
 
-#: kernel launches made by :func:`cross_intra_block` (CUDA tensors only)
+#: kernel launches run on the card by :func:`cross_intra_block` (CUDA
+#: tensors only): each eager launch, and each launch of a CUDA graph's
+#: replay (engine/step_graph.py adds a graph's recorded launches per replay)
 launches = 0
+#: launches recorded into CUDA graphs while they were captured; a capture
+#: runs nothing, so these are not in ``launches``
+captured = 0
 
 
 def attention(x, w_qkv, w_out, b_out, heads, dim_head, project_out):
@@ -131,8 +136,11 @@ def _forward(x, params, heads, dim_head, project_out):
              int(project_out), (ctypes.c_void_p * 14)(*ptrs),
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "cross_intra_block kernel")
-    global launches
-    launches += 1
+    global launches, captured
+    if torch.cuda.is_current_stream_capturing():
+        captured += 1
+    else:
+        launches += 1
     return out
 
 

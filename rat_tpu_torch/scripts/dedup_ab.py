@@ -155,9 +155,11 @@ def collective_audit(n_devices=8, model_axis=2):
 
 
 def time_ab(device, steps=256, group=64, batch_size=4096, n_rows=200_000):
-    """Examples/s of the ML-Tag bench step with the flag off and on: one
-    warm window of ``group`` steps, then the best of 3 windows of
-    ``steps``. The flag reaches the bench's params through
+    """Examples/s of the ML-Tag bench step with the flag off and on, in
+    grouped dispatches of ``group`` steps (``Trainer.train_scan``; the
+    graph gate closes the CUDA graph under ``dedup_neighbors``, as the
+    log says): one warm window of ``group`` steps, then the best of 3
+    windows of ``steps``. The flag reaches the bench's params through
     RAT_AB_OVERRIDE, which is restored afterwards."""
     before = os.environ.get("RAT_AB_OVERRIDE")
     rates = {}
@@ -169,11 +171,11 @@ def time_ab(device, steps=256, group=64, batch_size=4096, n_rows=200_000):
                 os.environ.pop("RAT_AB_OVERRIDE", None)
             trainer, data, idx, B = _bench_setup("mltag", batch_size=batch_size,
                                                  n_rows=n_rows, device=device)
-            idx_group = [idx[i % len(idx)] for i in range(group)]
+            idx_group = torch.stack([idx[i % len(idx)] for i in range(group)])
 
             def window(n):
-                for i in range(n):
-                    loss = trainer.train_step(data, idx_group[i % group], B)
+                for _ in range(n // group):
+                    loss = trainer.train_scan(data, idx_group, [B] * group)[-1]
                 return float(loss)  # waits for the window's last step
 
             window(group)

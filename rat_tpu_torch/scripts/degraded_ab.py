@@ -3,11 +3,12 @@
 Runs the bench's ML-Tag train step (``cli/benchmark.py::_bench_setup``)
 in short windows and prints one line of examples/s, so that candidate
 settings (batch size, model overrides) compare in minutes. A window is
-``group`` steps in a Python loop (the port has no grouped dispatch):
-the first window's seconds are printed as ``compile`` (the first steps'
-one-time costs: cuBLAS handles, the allocator's first blocks, the
-optimizer's build), then ``steps // group`` windows are timed three
-times.
+one grouped dispatch of ``group`` steps (``Trainer.train_scan``, on a
+card the step's CUDA graph replayed, as the JAX script's scanned
+groups): the first window's seconds are printed as ``compile`` (the
+first steps' one-time costs: cuBLAS handles, the allocator's first
+blocks, the optimizer's build, the graph's capture), then ``steps //
+group`` windows are timed three times.
 
     python -m rat_tpu_torch.scripts.degraded_ab [batch_size] [group] [steps]
 
@@ -24,6 +25,8 @@ import os
 import sys
 import time
 
+import torch
+
 from ..cli.benchmark import _bench_setup
 from . import script_device
 
@@ -37,12 +40,11 @@ def main(argv=None, device=None, n_rows=200_000):
 
     trainer, data, idx, _ = _bench_setup("mltag", batch_size=B, n_rows=n_rows,
                                          device=device)
-    idx_group = [idx[i % len(idx)] for i in range(group)]
+    idx_group = torch.stack([idx[i % len(idx)] for i in range(group)])
 
     def window():
-        for i in idx_group:
-            loss = trainer.train_step(data, i, B)
-        return float(loss)  # waits for the window's last step
+        # waits for the window's last step
+        return float(trainer.train_scan(data, idx_group, [B] * group)[-1])
 
     tic = time.perf_counter()
     window()

@@ -3,9 +3,10 @@ kernel.
 
 The bench program (``cli/benchmark.py::_bench_setup(shape)``, the step
 ``bench_train`` measures) runs two warm windows and then two windows
-under torch.profiler, each window ``group`` train steps in a Python
-loop (the port has no grouped ``lax.scan`` dispatch; a window is the
-same steps one by one). The CUDA kernels' device time is summed by
+under torch.profiler, each window one grouped dispatch of ``group``
+train steps (``Trainer.train_scan``: on a card the step's CUDA graph
+replayed, as the JAX script's scanned groups; the first window also
+captures it). The CUDA kernels' device time is summed by
 kernel name; the total and the top 45 kernels print with their share,
 as the JAX script's table of XLA ops does. On the CPU the table is of
 the CPU operators' own time instead.
@@ -58,12 +59,11 @@ def main(argv=None, device=None, batch_size=4096, n_rows=200_000):
 
     trainer, data, idx, B = _bench_setup(shape, batch_size=batch_size, n_rows=n_rows,
                                          device=device)
-    idx_group = [idx[i % len(idx)] for i in range(group)]
+    idx_group = torch.stack([idx[i % len(idx)] for i in range(group)])
 
     def window():
-        for i in idx_group:
-            loss = trainer.train_step(data, i, B)
-        return float(loss)  # waits for the window's last step
+        # waits for the window's last step
+        return float(trainer.train_scan(data, idx_group, [B] * group)[-1])
 
     for _ in range(2):
         window()

@@ -46,6 +46,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         bm.bench_train(steps=1)
     with pytest.raises(RuntimeError, match="CUDA"):
+        bm.bench_train(steps=128, group=64)
+    with pytest.raises(RuntimeError, match="CUDA"):
         bm.bench_retrieval(n_db=10, n_qry=10)
     with pytest.raises(RuntimeError, match="CUDA"):
         bm.bench_scaling(2)
