@@ -73,7 +73,10 @@ Phases, any failure exits non-zero:
              (the eval graph) in turns, predictions within 1e-6,
              examples/s; 8 KKBox steps (BatchNorm, embedding dropout)
              eagerly and as one graphed group from one state, or the
-             gate's reason where the graph is closed.
+             gate's reason where the graph is closed; the 128 ML-Tag
+             steps again with ``dedup_neighbors``, per step and graphed,
+             equal bit for bit to each other and to the plain run, and a
+             profiled window each way.
 10. variants — RAT_m0, RAT_m1 and RAT_m3 at the full widths of their
              ML-Tag configs on the train phase's data and neighbours:
              one step on the card against the same step on the CPU,
@@ -113,9 +116,18 @@ Phases, any failure exits non-zero:
              engine (its cache equal to the unsharded neighbours), the
              first step's loss and gradients against the non-mesh
              Trainer's, one epoch of Trainer.fit with K1 on the local
-             batch, the evaluation, the weights and full-state round
-             trips, and ms per step beside the non-mesh trainer's (the
-             cost of the collectives on one rank).
+             batch (grouped, the step graph replayed with its
+             collectives captured), the evaluation, the weights and
+             full-state round trips; from one state, 2 groups of 64 steps
+             per step and graphed, the LR decay between them, equal bit
+             for bit (losses, weights, Adam's moments), K1 = depth x
+             steps, 127 replays, host ms per step in turns and device ms
+             per step and idle share profiled, each way; the valid split
+             per batch and graphed, equal bit for bit; 8 steps of a
+             BatchNorm trainer on the mesh eagerly and as one graphed
+             group (BatchNorm's all-reduces captured), equal bit for bit;
+             and per-step ms beside the non-mesh trainer's (the cost of
+             the collectives on one rank).
 14. exact_match — exact-match retrieval over the serve phase's arrays
              (200,686 requests, 1,404,801 rows, K=5, batches of 5000):
              user_id exact on Zipf ids, user_id exact on uniform ids, all
@@ -195,7 +207,8 @@ Phases, any failure exits non-zero:
              --valid-rows 100000 on (a)'s build under stall_guard, a
              subprocess (exit 0, no kill); (c) profile_train_step at the
              ML-Tag and Tmall bench shapes (top 15 kernels of each); (d)
-             degraded_ab; (e) dedup_ab --time; (f) tax_probe; (g)
+             degraded_ab; (e) dedup_ab --time (windows of 128 steps,
+             each arm's dispatch printed); (f) tax_probe; (g)
              gm_encoder_ab --parity at ML-Tag's and KKBox's widths
              (forward within 1e-4, gradients within 1e-3 relative); (h)
              chip_health. No kernel is launched after (a) (asserted).
@@ -241,7 +254,7 @@ from rat_tpu_torch.ops import _build
 from rat_tpu_torch.ops import bm25_score_chunk as k3
 from rat_tpu_torch.ops import bm25_topk as k2
 from rat_tpu_torch.ops import cross_intra_block as k1
-from rat_tpu_torch.parallel import initialize_distributed, make_mesh
+from rat_tpu_torch.parallel import initialize_distributed, make_mesh, process_local_rows
 from rat_tpu_torch.parallel.distributed import free_port
 from rat_tpu_torch.parallel.dryrun import local_leaves, one_step
 from rat_tpu_torch.retrieval import bm25, sharded
@@ -1333,6 +1346,48 @@ def _state_err(a, b):
                for k in a)
 
 
+def _moments(trainer):
+    """The optimizer's state tensors (Adam's moments and step), keyed by
+    parameter position and name."""
+    return {"{}/{}".format(i, key): v.detach().cpu().clone()
+            for i, slot in trainer.optimizer.state_dict()["state"].items()
+            for key, v in slot.items() if torch.is_tensor(v)}
+
+
+def _runs_from(trainer, state, batches, arms, decay_at):
+    """``batches`` from the saved ``state`` once per arm (name, group:
+    0 per step, else groups through Trainer.train_scan), each with the
+    LR plateau's decay after ``decay_at`` batches: {name: losses, host
+    ms per step, K1's launches, the final LR, weights and buffers, the
+    optimizer's moments}."""
+    runs = {}
+    for name, group in arms:
+        _set_train_state(trainer, state)
+        k1.launches = 0
+        losses, ms = _run_steps(trainer, batches, group, decay_at=decay_at)
+        runs[name] = {"losses": losses, "host_ms_per_step": ms, "k1": k1.launches,
+                      "lr": get_learning_rate(trainer.optimizer),
+                      "state": {k: v.detach().cpu().clone()
+                                for k, v in trainer.model.state_dict().items()},
+                      "moments": _moments(trainer)}
+    return runs
+
+
+def _run_err(a, b):
+    """The largest |difference| between two runs of :func:`_runs_from`:
+    step losses, weights and buffers, optimizer moments."""
+    if len(a["losses"]) != len(b["losses"]) or sorted(a["moments"]) != sorted(b["moments"]):
+        raise AssertionError("two runs of other lengths or other optimizer state")
+    return {"loss": float(np.abs(a["losses"] - b["losses"]).max()),
+            "state": _state_err(a["state"], b["state"]),
+            "moments": _state_err(a["moments"], b["moments"])}
+
+
+def _replays(trainer, kind="train"):
+    graph = trainer._graphs.get(kind)
+    return graph.replays if graph is not None else 0
+
+
 def _window(trainer, batches, group, profiled):
     """One more run of ``batches`` from the current state (the graph, if
     any, already captured): host ms per step, and under torch.profiler
@@ -1354,13 +1409,17 @@ def _window(trainer, batches, group, profiled):
 def _eval_per_batch(trainer, gen, data):
     """Scores of ``gen`` one batch per dispatch, each batch's ids uploaded
     with a blocking copy and each batch's scores kept on the device until
-    the end (the per-step loop's eval); host float32."""
+    the end (the per-step loop's eval; under a mesh, of one rank, this
+    rank's rows); host float32."""
     model, dev = trainer.model, trainer.device
     model.eval()
     preds = []
     with torch.no_grad():
         for idx, valid in gen.epoch_index_batches():
-            out = trainer._forward(data, torch.from_numpy(idx).to(dev))
+            idx = torch.from_numpy(idx).to(dev)
+            if trainer.mesh is not None:
+                idx = process_local_rows(idx, trainer.mesh)
+            out = trainer._forward(data, idx)
             preds.append(out["y_pred"][:valid, 0])
     return torch.cat(preds).cpu().numpy()
 
@@ -1384,33 +1443,28 @@ def grouped(trainer, train_gen, valid_gen, kk_trainer, kk_gen, seed, group=GROUP
     the eval graph), in turns: predictions within 1e-6, examples/s. The
     KKBox trainer: ``kk_steps`` steps eagerly and as one graphed group
     from one state (BatchNorm's statistics and the dropout masks in the
-    graph), or the gate's reason where the graph is closed. Every trainer
-    is put back in its saved state. Returns (results, the grouped runs'
-    launches)."""
+    graph), or the gate's reason where the graph is closed. The ML-Tag
+    steps once more with ``dedup_neighbors`` (the fixed-size unique's
+    gather), per step and graphed: both equal bit for bit to each other
+    and to the plain per-step run (losses, weights, buffers, Adam's
+    moments), K1 = depth x steps in n - 1 replays, and a profiled window
+    of the graphed steps. Every trainer is put back in its saved state. Returns
+    (results, the grouped runs' launches: the graphed plain and dedup
+    runs and the grouped evaluations)."""
     cuda = trainer.device.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     depth = trainer.model.depth
     n = groups * group
     batches = _host_batches(train_gen, seed, n + 2 * window)
     state = _train_state(trainer)
-    runs = {}
-    for name, g in (("per_step_a", 0), ("per_step_b", 0), ("grouped", group)):
-        _set_train_state(trainer, state)
-        k1.launches = 0
-        losses, ms = _run_steps(trainer, batches[:n], g, decay_at=group)
-        runs[name] = {"losses": losses, "host_ms_per_step": ms, "k1": k1.launches,
-                      "lr": get_learning_rate(trainer.optimizer),
-                      "state": {k: v.detach().cpu().clone()
-                                for k, v in trainer.model.state_dict().items()}}
+    runs = _runs_from(trainer, state, batches[:n],
+                      (("per_step_a", 0), ("per_step_b", 0), ("grouped", group)), group)
     a, b, g = runs["per_step_a"], runs["per_step_b"], runs["grouped"]
-    graph = trainer._graphs.get("train")
-    replays = graph.replays if graph is not None else 0
-    spread = {"loss": float(np.abs(a["losses"] - b["losses"]).max()),
-              "state": _state_err(a["state"], b["state"])}
-    err = {"loss": float(np.abs(g["losses"] - a["losses"]).max()),
-           "state": _state_err(g["state"], a["state"])}
+    replays = _replays(trainer)
+    spread, err = _run_err(a, b), _run_err(g, a)
     bound = {"loss": max(2 * spread["loss"], GROUPED_LOSS_ATOL),
-             "state": max(2 * spread["state"], GROUPED_STATE_ATOL)}
+             "state": max(2 * spread["state"], GROUPED_STATE_ATOL),
+             "moments": max(2 * spread["moments"], GROUPED_STATE_ATOL)}
     if len(g["losses"]) != n or not all(err[k] <= bound[k] for k in err) \
             or g["lr"] != a["lr"]:
         raise AssertionError("grouped: the grouped run differs from the per-step run by "
@@ -1422,7 +1476,7 @@ def grouped(trainer, train_gen, valid_gen, kk_trainer, kk_gen, seed, group=GROUP
     gate = trainer._graph_gate("train")
     res = {"steps": n, "group": group, "graph": gate is None, "gate": gate,
            "replays": replays, "k1_launches": g["k1"], "lr_after_decay": g["lr"],
-           "bit_equal": err["loss"] == 0 and err["state"] == 0,
+           "bit_equal": not any(err.values()),
            "spread_per_step": spread, "grouped_vs_per_step": err, "bounds": bound,
            "host_ms_per_step": {"per_step": a["host_ms_per_step"],
                                 "per_step_again": b["host_ms_per_step"],
@@ -1468,6 +1522,34 @@ def grouped(trainer, train_gen, valid_gen, kk_trainer, kk_gen, seed, group=GROUP
                    "examples_per_s": evals, "pred_max_abs_err": pred_err,
                    "pred_bit_equal": pred_err == 0.0,
                    "graph": trainer._graph_gate("eval") is None}
+
+    # dedup_neighbors (the fixed-size unique's gather) on the same steps,
+    # per step and graphed: equal to each other and to the plain runs
+    trainer._dedup = True
+    try:
+        d = _runs_from(trainer, state, batches[:n], (("per_step", 0), ("grouped", group)),
+                       group)
+        d_replays, d_gate = _replays(trainer), trainer._graph_gate("train")
+        d_prof = _window(trainer, more[0], group, True)
+    finally:
+        trainer._dedup = False
+        trainer._graphs.pop("train", None)
+    d_err, d_plain = _run_err(d["grouped"], d["per_step"]), _run_err(d["per_step"], a)
+    if any(d_err.values()) or any(d_plain.values()) or d["grouped"]["lr"] != a["lr"]:
+        raise AssertionError("grouped: dedup_neighbors' graphed run differs from its "
+                             "per-step run by {}, which differs from the plain per-step "
+                             "run by {}".format(d_err, d_plain))
+    if d["grouped"]["k1"] != want_k1 or (cuda and (d_replays != n - 1 or d_gate)):
+        raise AssertionError("grouped: dedup_neighbors' graphed run launched K1 {} times "
+                             "in {} replays, expected {} in {}".format(
+                                 d["grouped"]["k1"], d_replays, want_k1, n - 1))
+    res["dedup"] = {"steps": n, "graph": d_gate is None, "gate": d_gate,
+                    "replays": d_replays, "k1_launches": d["grouped"]["k1"],
+                    "bit_equal": True, "equal_to_plain": True,
+                    "host_ms_per_step": {"per_step": d["per_step"]["host_ms_per_step"],
+                                         "grouped_with_capture":
+                                             d["grouped"]["host_ms_per_step"]},
+                    "profiled": d_prof}
     _set_train_state(trainer, state)
 
     # KKBox's module path: BatchNorm and dropout masks in the graph
@@ -1496,7 +1578,8 @@ def grouped(trainer, train_gen, valid_gen, kk_trainer, kk_gen, seed, group=GROUP
                                                               kk["eager"]["generator"])),
                     "host_ms_per_step": {k: v["ms"] for k, v in kk.items()}}
     _set_train_state(kk_trainer, kk_state)
-    return res, {"cross_intra_block": g["k1"] + eval_k1, "bm25_topk": 0}
+    return res, {"cross_intra_block": g["k1"] + d["grouped"]["k1"] + eval_k1,
+                 "bm25_topk": 0}
 
 
 def print_grouped(res):
@@ -1518,6 +1601,15 @@ def print_grouped(res):
                                                                  for x in ev["per_batch"]),
                                  " / ".join("{:.0f}".format(x) for x in ev["grouped"]),
                                  res["eval"]["pred_max_abs_err"]))
+    dd, p = res["dedup"], res["dedup"]["profiled"]
+    print("grouped dedup_neighbors ({} steps from one state): host ms per step {:.3f} per "
+          "step, {:.3f} {} (capture included); the grouped steps' device ms per step {}, "
+          "idle share {} (profiled window, host {} ms per step)".format(
+              dd["steps"], dd["host_ms_per_step"]["per_step"],
+              dd["host_ms_per_step"]["grouped_with_capture"],
+              "graphed" if dd["graph"] else "grouped, no graph: " + str(dd["gate"]),
+              fmt(p.get("device_ms_per_step")), fmt(p.get("idle_share")),
+              fmt(p.get("profiled_host_ms_per_step"))))
     kk = res["kkbox"]
     print("grouped kkbox ({} steps, BatchNorm {}, dropout {}): {}; against eager {}".format(
         kk["steps"], kk["batch_norm"], kk["dropout"],
@@ -1620,8 +1712,131 @@ def mesh_scan(device, pool, test, shards=4, retrieval=MLTAG_RETRIEVAL):
             "merge_share": timings["merge_s"] / total_s, "equal": True}, launches
 
 
+def mesh_graphs(trainer, train_gen, valid_gen, seed, group=GROUP, groups=2,
+                window=GROUP // 2, bn_steps=8):
+    """The grouped dispatch under the mesh of ``trainer`` (one rank): from
+    one saved state, ``groups`` x ``group`` steps per step (the mesh's
+    per-step path, its collectives eager) and graphed (Trainer.train_scan:
+    the step's forward and backward captured with the gradients' and the
+    loss's all-reduces, the clip's reduction eager after each replay),
+    the LR plateau's decay between the groups in each: equal bit for bit
+    (losses, weights, buffers, Adam's moments, the LR), K1 = depth x
+    steps in each, n - 1 replays. Host ms per step in turns (per step,
+    graphed, graphed, per step) over ``window`` more steps, then a
+    profiled window each way (device ms per step, idle share). The valid
+    split per batch and through Trainer.predict (the eval graph, gathered
+    over the data group) in turns: equal bit for bit, K1 = depth x
+    batches in each. A BatchNorm trainer of the same config on the same
+    mesh and split (the module path: BatchNorm's all-reduces of the
+    forward and the backward captured): ``bn_steps`` steps eagerly and as
+    one graphed group from one state, equal bit for bit. The trainer is
+    put back in its saved state. Returns (results, K1's launches of the
+    graphed train run and the graphed evaluations)."""
+    cuda = trainer.device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    depth = trainer.model.depth
+    n = groups * group
+    batches = _host_batches(train_gen, seed, n + window)
+    state = _train_state(trainer)
+    runs = _runs_from(trainer, state, batches[:n], (("per_step", 0), ("graphed", group)),
+                      group)
+    per, graphed = runs["per_step"], runs["graphed"]
+    replays, gate = _replays(trainer), trainer._graph_gate("train")
+    err = _run_err(graphed, per)
+    want_k1 = depth * n if cuda else 0
+    if any(err.values()) or graphed["lr"] != per["lr"]:
+        raise AssertionError("mesh (b): the graphed steps differ from the mesh's per-step "
+                             "steps by {}".format(err))
+    if per["k1"] != want_k1 or graphed["k1"] != want_k1 or \
+            (cuda and (replays != n - 1 or gate)):
+        raise AssertionError("mesh (b): K1 launched {} / {} times (per step / graphed) in "
+                             "{} replays, expected {} in {}".format(
+                                 per["k1"], graphed["k1"], replays, want_k1, n - 1))
+    res = {"steps": n, "group": group, "graph": gate is None, "gate": gate,
+           "replays": replays, "k1_launches": graphed["k1"], "bit_equal": True,
+           "lr_after_decay": graphed["lr"],
+           "host_ms_per_step": {"per_step": per["host_ms_per_step"],
+                                "graphed_with_capture": graphed["host_ms_per_step"]}}
+    steady = {"per_step": [], "graphed": []}
+    for name in ("per_step", "graphed", "graphed", "per_step"):
+        steady[name].append(_window(trainer, batches[n:], group if name == "graphed" else 0,
+                                    False)["host_ms_per_step"])
+    res["steady_host_ms_per_step"] = steady
+    res["profiled"] = {name: _window(trainer, batches[n:], grp, True)
+                       for name, grp in (("per_step", 0), ("graphed", group))}
+
+    data = trainer._valid_data
+    preds, rates, eval_k1 = {"per_batch": [], "graphed": []}, {"per_batch": [], "graphed": []}, 0
+    for name in ("per_batch", "graphed", "graphed", "per_batch"):
+        k1.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        pred = _eval_per_batch(trainer, valid_gen, data) if name == "per_batch" else \
+            trainer.predict(valid_gen, data).astype(np.float32)
+        sync()
+        rates[name].append(len(pred) / (time.perf_counter() - t0))
+        if k1.launches != (depth * len(valid_gen) if cuda else 0):
+            raise AssertionError("mesh (b): eval {} launched K1 {} times".format(
+                name, k1.launches))
+        eval_k1 += k1.launches if name == "graphed" else 0
+        preds[name].append(pred)
+    want = preds["per_batch"][0]
+    if not all(np.array_equal(p, want) for p in preds["graphed"] + preds["per_batch"]):
+        raise AssertionError("mesh (b): the graphed evaluation's predictions differ from "
+                             "the per-batch ones")
+    res["eval"] = {"rows": len(want), "batches": len(valid_gen), "pred_bit_equal": True,
+                   "graph": trainer._graph_gate("eval") is None, "examples_per_s": rates}
+    _set_train_state(trainer, state)
+
+    # BatchNorm under the mesh: its collectives inside the captured step
+    bn = Trainer(trainer.feature_map, dict(trainer.params, batch_norm=True),
+                 mesh=trainer.mesh)
+    bn._train_data = trainer._train_data
+    bn_runs = _runs_from(bn, _train_state(bn), batches[:bn_steps],
+                         (("eager", 0), ("graphed", bn_steps)), None)
+    bn_err = _run_err(bn_runs["graphed"], bn_runs["eager"])
+    if any(bn_err.values()) or bn_runs["graphed"]["k1"] or bn_runs["eager"]["k1"]:
+        raise AssertionError("mesh (b): the BatchNorm trainer's graphed group differs from "
+                             "its eager steps by {} (K1 {})".format(
+                                 bn_err, bn_runs["graphed"]["k1"]))
+    res["batch_norm"] = {"steps": bn_steps, "graph": bn._graph_gate("train") is None,
+                         "replays": _replays(bn), "bit_equal": True,
+                         "host_ms_per_step": {k: v["host_ms_per_step"]
+                                              for k, v in bn_runs.items()}}
+    if cuda and (res["batch_norm"]["replays"] != bn_steps - 1
+                 or not res["batch_norm"]["graph"]):
+        raise AssertionError("mesh (b): the BatchNorm group replayed {} times".format(
+            res["batch_norm"]["replays"]))
+    del bn
+    return res, graphed["k1"] + eval_k1
+
+
+def print_mesh_graphs(res):
+    """The mesh's per-step and graphed figures, one line each way."""
+    def fmt(x):
+        return "not measured" if x is None else "{:.3f}".format(x)
+    for name in ("per_step", "graphed"):
+        p = res["profiled"][name]
+        print("mesh (b) train {} (ML-Tag fused, one-rank NCCL mesh): host ms per step {} "
+              "(in turns), device ms per step {}, idle share {} (profiled window, host {} "
+              "ms per step)".format(
+                  name, " / ".join("{:.3f}".format(x) for x in res["steady_host_ms_per_step"][name]),
+                  fmt(p.get("device_ms_per_step")), fmt(p.get("idle_share")),
+                  fmt(p.get("profiled_host_ms_per_step"))))
+    ev = res["eval"]["examples_per_s"]
+    print("mesh (b) eval ({} rows): examples/s per batch {} | graphed {}; predictions equal "
+          "bit for bit".format(res["eval"]["rows"],
+                               " / ".join("{:.0f}".format(x) for x in ev["per_batch"]),
+                               " / ".join("{:.0f}".format(x) for x in ev["graphed"])))
+    bn = res["batch_norm"]
+    print("mesh (b) BatchNorm ({} steps, module path): {} in {} replays, equal to its eager "
+          "steps bit for bit; host ms per step {}".format(
+              bn["steps"], "graphed" if bn["graph"] else "no graph", bn["replays"],
+              json.dumps(bn["host_ms_per_step"])))
+
+
 def mesh_train(device, seed, pool, valid_gen, batch_size, work_dir, train_gen, reference,
-               timing_steps=20):
+               timing_steps=10, graph_sizes=None):
     """Mesh phase (b): a one-rank process group (NCCL on the card, gloo on
     the CPU) and a real 1x1 mesh through the mesh code path. The train
     arrays' 10-fold self-retrieval through the sharded engine
@@ -1630,16 +1845,17 @@ def mesh_train(device, seed, pool, valid_gen, batch_size, work_dir, train_gen, r
     step's loss and gradients against the non-mesh Trainer's on the same
     batch (equal bit for bit: a one-rank mesh shards no table and its
     collectives copy); one epoch of
-    Trainer.fit (K1 on the local batch), the evaluation, the weights and
-    the full-state round trips (predictions and every leaf equal); the
-    steady ms per step against the non-mesh ``reference`` trainer's, in
-    the order reference, mesh, mesh, reference (``timing_steps`` steps
-    each), and on a GPU a short profile of the mesh steps (device time by
-    kernel, idle share). The retrieval's seconds include the cache's
-    write by rank 0 and its read back; the comparison's own read of the
-    cache is timed apart. Launches are counted over
-    the retrieval (K2) and over the fit, evaluations and round trips (K1).
-    Returns (results, launches)."""
+    Trainer.fit (K1 on the local batch; on a card the step graph), the
+    evaluation, the weights and the full-state round trips (predictions
+    and every leaf equal); :func:`mesh_graphs` (``graph_sizes``: its
+    group, groups, window and bn_steps); the steady per-step ms against
+    the non-mesh ``reference`` trainer's, in the order reference, mesh,
+    mesh, reference (``timing_steps`` steps each). The retrieval's
+    seconds include the cache's write by rank 0 and its read back; the
+    comparison's own read of the cache is timed apart. Launches are
+    counted over the retrieval (K2) and over the fit, evaluations and
+    round trips and mesh_graphs' graphed runs (K1). Returns (results,
+    launches)."""
     cuda = torch.device(device).type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     initialize_distributed(device, "tcp://localhost:{}".format(free_port()), 1, 0)
@@ -1724,21 +1940,23 @@ def mesh_train(device, seed, pool, valid_gen, batch_size, work_dir, train_gen, r
         if len(losses) != len(gen) or not np.all(np.isfinite(losses)):
             raise AssertionError("mesh (b): bad step losses")
 
+        graphs, graph_k1 = mesh_graphs(trainer, gen, valid_gen, seed, **(graph_sizes or {}))
+        launches["cross_intra_block"] += graph_k1
+
         batches = _train_batches(trainer, gen, seed, timing_steps + 2)
         ms = {"plain": [], "mesh": []}
         for name in ("plain", "mesh", "mesh", "plain"):
             runner = reference if name == "plain" else trainer
             ms[name].append(steady_ms_per_step(runner, gen, seed, timing_steps, batches))
-        profile = profile_train(trainer, gen, seed, steps=10, rows=10,
-                                label="mesh (b)") if cuda else {}
         return {"retrieval_s": retrieval_s, "cache_read_s": cache_read_s,
                 "first_step_loss": loss_m,
                 "first_step_loss_abs_err": abs(loss_m - loss_p),
                 "first_step_grad_max_abs_err": worst, "steps": len(losses),
-                "epoch_s": epoch_s, "AUC": logs["AUC"], "logloss": logs["logloss"],
+                "epoch_s": epoch_s, "train_dispatch": trainer.train_dispatch(
+                    trainer._train_group_size()),
+                "AUC": logs["AUC"], "logloss": logs["logloss"],
                 "ms_per_step_mesh": ms["mesh"], "ms_per_step_plain": ms["plain"],
-                "mesh_device_ms_per_step": profile.get("device_ms_per_step"),
-                "mesh_idle_share": profile.get("idle_share")}, launches
+                "graphs": graphs}, launches
     finally:
         dist.destroy_process_group()
 
@@ -3003,6 +3221,9 @@ SCRIPT_RUNS = (
 
 # gm_encoder_ab's parity against the module encoder: the forward's
 # largest absolute error, the largest per-leaf relative gradient error
+#: the scripts phase's cut on the card: dedup_ab --time's windows of 128
+#: steps (the script's default 256), for the whole run's time limit
+SCRIPT_SIZES = {"dedup_ab": {"steps": 128}}
 GM_FWD_ATOL = 1e-4
 GM_GRAD_RTOL = 1e-3
 
@@ -3304,8 +3525,9 @@ def main(argv=None):
                                         kk_gen, args.seed)
         print("grouped: " + json.dumps(res))
         print_grouped(res)
-        print("grouped launches (asserted: K1 = depth x steps of the graphed run + depth x "
-              "valid batches in each of the 2 grouped evaluations): "
+        print("grouped launches (asserted: K1 = depth x steps of each graphed run, plain "
+              "and dedup_neighbors, + depth x valid batches in each of the 2 grouped "
+              "evaluations): "
               + json.dumps(grouped_launches))
         print("grouped phase: {:.1f} s".format(time.perf_counter() - t0))
         del kk_trainer, kk_gen, kk_train, kk_valid
@@ -3325,8 +3547,11 @@ def main(argv=None):
         res, train_launches_m = mesh_train(device, args.seed, pool, trainer.valid_gen,
                                            batch_size, model_root, train_gen, trainer)
         print("mesh (b) one-rank NCCL mesh: " + json.dumps(res))
+        print_mesh_graphs(res["graphs"])
         print("mesh (b) launches (asserted: K1 = depth x (train steps + 4 x valid "
-              "batches), K2 = query batches of the 10 folds): "
+              "batches) in the fit, evaluations and round trips, + depth x steps of the "
+              "graphed run + depth x valid batches in each of the 2 graphed "
+              "evaluations; K2 = query batches of the 10 folds): "
               + json.dumps(train_launches_m))
         print("mesh phase: {:.1f} s".format(time.perf_counter() - t0))
         mesh_launches = {k: scan_launches[k] + train_launches_m[k] for k in scan_launches}
@@ -3429,7 +3654,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as work_dir:
-        res = scripts(device, work_dir)
+        res = scripts(device, work_dir, sizes=SCRIPT_SIZES)
     scripts_launches = res.pop("launches")
     kernels[1].update({k + "_tmall_f5": v for k, v in res.pop("k2_tmall").items()})
     print("scripts: " + json.dumps(res))

@@ -19,19 +19,47 @@ of kernel launches, and never waits for the card inside a group.
   the device, computes its bias corrections in float32 on the device:
   another arithmetic, which moved the reduced-precision gate's float32
   and TF32 fits apart.)
-- **Static inputs.** The step reads ``idx`` [B] (row ids) and, in
-  training, ``valid`` (the batch's real rows, a float32 device scalar,
-  so that the padded last batch goes through the same graph, as in
-  JAX's scan). Each batch's values are copied into them before its
-  replay.
+- **Static inputs.** The step reads ``idx`` [B] (the global batch's
+  row ids) and, in training, ``valid`` (the batch's real rows, a float32
+  device scalar, so that the padded last batch goes through the same
+  graph, as in JAX's scan). Each batch's values are copied into them
+  before its replay. Under a mesh each rank's step reads its slice of
+  ``idx`` (``process_local_rows``: a view of the buffer).
 - **Static outputs.** A replay overwrites the captured outputs (the
-  loss; the predictions and labels), so :meth:`StepGraph.run` copies
-  each replay's outputs into the group's stacked buffers.
+  loss; the predictions and labels, this rank's rows under a mesh), so
+  :meth:`StepGraph.run` copies each replay's outputs into the group's
+  stacked buffers.
 - **Warm-up.** A capture runs nothing. A new graph's first batch runs
   eagerly on the capture's own stream (a real step: cuBLAS's workspace
-  for that stream and K1's launch plan exist before the capture), and
-  the batches after it replay the graph, so no batch is applied twice
-  or skipped.
+  for that stream, K1's launch plan and, under a mesh, the NCCL
+  communicator of every group the step reduces over exist before the
+  capture), and the batches after it replay the graph, so no batch is
+  applied twice or skipped.
+- **Under a process group.** The collectives of the forward and the
+  backward are captured: the gradients' all-reduce over the data group
+  and the reported loss's over the world (Trainer._mesh_backward),
+  BatchNorm's statistics and the row-sharded lookups' sums
+  (nn/layers.py::_AllReduceSum, nn/embedding.py::RowShardedLookup, the
+  backward's from autograd's device thread). What this torch's
+  ProcessGroupNCCL needs (torch 2.11, NCCL 2.28.9, a one-rank group on
+  an H100): (1) the communicator must exist: NCCL creates it at a
+  group's first collective, and that creation inside a capture fails
+  ("operation not permitted when stream is capturing"), hence the
+  eager warm-up, which runs every collective of the step; (2) nothing
+  else: with the default capture mode, the watchdog and its
+  asynchronous error handling on and the communicators created lazily,
+  a capture after the warm-up holds the collectives and its replays
+  give the eager values, so parallel/distributed.py sets no variable
+  for it (turning the error handling off, as older torch releases
+  asked, is not needed); (3) captured and
+  eager collectives share a communicator: the clip's all-reduce over the
+  model group (Trainer._mesh_grad_sq_norm) runs eagerly after each
+  replay, and the evaluation's all-gather after the replays
+  (Trainer._gather_predictions), ordered on the stream after them;
+  NCCL_GRAPH_MIXING_SUPPORT must keep its default, 1. Every rank
+  captures at the same batch of the same group, so the collectives
+  meet in one order. A capture over two or more ranks has not run (one
+  card holds one rank).
 - **Dropout.** The Trainer's dropout generator is registered with a
   train graph (``CUDAGraph.register_generator_state``), so each replay
   draws the masks the eager step would have drawn.
@@ -47,12 +75,14 @@ of kernel launches, and never waits for the card inside a group.
   buffers, and its own memory pool. It holds its split, and the Trainer
   drops it (Trainer._graph) when the split changes, when weights are
   loaded, and when the model's mode or path is not the one it was
-  captured in. A capture that fails raises.
+  captured in. A capture that fails raises; nothing falls back to the
+  eager step.
 """
 
 import torch
 
 from ..ops import cross_intra_block as k1
+from ..parallel import process_local_rows
 
 
 class StepGraph(object):
@@ -70,7 +100,9 @@ class StepGraph(object):
         self.trainer, self.kind, self.data, self.key = trainer, kind, data, key
         self.idx = torch.zeros(batch_size, dtype=torch.int64, device=device)
         self.valid = torch.zeros((), dtype=torch.float32, device=device)
-        self.stream = torch.cuda.Stream(device)
+        # no stream on the CPU, where no graph is captured but the step
+        # runs all the same
+        self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
         self.warm = False
         self.graph = None
         self.outputs = None
@@ -86,8 +118,9 @@ class StepGraph(object):
             if captured:
                 return (t.loss_and_grads(self.data, self.idx, self.valid),)
             return (t.train_step(self.data, self.idx, self.valid),)
+        idx = self.idx if t.mesh is None else process_local_rows(self.idx, t.mesh)
         with torch.no_grad():
-            out = t._forward(self.data, self.idx)
+            out = t._forward(self.data, idx)
         return out["y_pred"][:, 0], out["y_true"][:, 0]
 
     def _capture(self):
@@ -107,9 +140,12 @@ class StepGraph(object):
         training ``valids`` [n] float32 on the device): eagerly for a new
         graph's first batch, then captured, then replayed. Returns each
         output stacked over the n batches: ([n] losses,) in training,
-        ([n, B] y_pred, [n, B] y_true) in evaluation."""
+        ([n, B'] y_pred, [n, B'] y_true) in evaluation (B' this rank's
+        rows)."""
         n, batch = idx.shape
-        shapes = [(n,)] if self.kind == "train" else [(n, batch), (n, batch)]
+        mesh = self.trainer.mesh
+        rows = batch if mesh is None else batch // mesh.data
+        shapes = [(n,)] if self.kind == "train" else [(n, rows), (n, rows)]
         outs = tuple(torch.empty(shape, dtype=torch.float32, device=idx.device)
                      for shape in shapes)
         current = torch.cuda.current_stream(idx.device)

@@ -43,15 +43,17 @@ Evaluation groups 64 batches per dispatch and keeps at most 8 groups in
 flight before it fetches the oldest. On a card a full group replays a
 CUDA graph of the train step's forward and backward, the optimizer
 stepping eagerly after each replay, and an eval group one of the eval
-forward (engine/step_graph.py), K1 inside, unless :meth:`Trainer.
-_graph_gate` says why not (the CPU, a mesh, ``dedup_neighbors``, a
-profiling epoch, dropout without ``register_generator_state``); those
-runs group their dispatch all the same and run each step eagerly. A
-profiling epoch runs per step. The full train state (``save_train_state``/``restore_train_state``, engine/checkpoint.py)
+forward (engine/step_graph.py), K1 inside, under a mesh (its
+collectives captured) and with ``dedup_neighbors`` too, unless
+:meth:`Trainer._graph_gate` says why not (the CPU, a profiling epoch,
+dropout without ``register_generator_state``); those runs group their
+dispatch all the same and run each step eagerly. A profiling epoch runs
+per step. The full train state (``save_train_state``/``restore_train_state``, engine/checkpoint.py)
 resumes a run exactly. ``profile_dir`` writes a torch.profiler trace of
 steps 2 to 2 + ``profile_steps`` of the first epoch. ``dedup_neighbors``
 (or RAT_TPU_DEDUP_NEIGHBORS=1) gathers each batch's pool rows once per
-distinct row and expands them with the inverse index: the same grid.
+distinct row and expands them with the inverse index of a fixed-size
+unique: the same grid, at shapes that do not depend on the data.
 
 Under a mesh (``mesh``, parallel/mesh.py), one process per device:
 
@@ -128,13 +130,34 @@ def get_loss_fn(loss):
     return loss  # callable
 
 
+def fixed_size_unique(ids):
+    """``jnp.unique(ids.reshape(-1), return_inverse=True, size=n,
+    fill_value=0)`` for the n = ids.numel() integer ids: (the sorted
+    distinct ids, then zeros, [n]; the inverse, of ``ids``' shape, with
+    ``unique[inverse] == ids``). Its shapes do not depend on the values
+    and nothing waits on the host, so a CUDA graph can hold it: a stable
+    sort, a flag where the sorted value changes, its cumulative sum (each
+    sorted id's slot) and two scatters, one back through the sort's
+    permutation."""
+    flat = ids.reshape(-1)
+    ordered, perm = torch.sort(flat, stable=True)
+    changed = torch.ones_like(ordered, dtype=torch.bool)
+    changed[1:] = ordered[1:] != ordered[:-1]
+    slot = torch.cumsum(changed, 0) - 1
+    # the repeats of an id write the same value to its slot
+    unique = torch.zeros_like(flat).scatter_(0, slot, ordered)
+    inverse = torch.empty_like(slot).scatter_(0, perm, slot)
+    return unique, inverse.reshape(ids.shape)
+
+
 def _gather_batch(data, idx, dedup_neighbors=False):
     """Assemble the [B, 1+K, L] grid from device-resident split arrays.
     Returns (X tokens, y labels, X_num — the float values of the same
     columns, or None without numeric fields —, nbr_mask or None — the
     [B, 1+K] mask of the corrected ``neighbor_padding="mask"`` mode).
     ``dedup_neighbors`` gathers each distinct pool row once and expands
-    with the inverse index (``torch.unique``): identical outputs."""
+    with the inverse index (:func:`fixed_size_unique`, the JAX package's
+    fixed-size unique): identical outputs."""
     Xt = data["tokens"][idx]
     yt = data["labels"][idx]
     Xf = data["numeric"][idx] if "numeric" in data else None
@@ -146,7 +169,7 @@ def _gather_batch(data, idx, dedup_neighbors=False):
         ok = data["nbr_ok"][idx]
         nmask = torch.cat([torch.ones_like(ok[:, :1]), ok], dim=1)
     if dedup_neighbors:
-        uniq, inverse = torch.unique(nb, return_inverse=True)
+        uniq, inverse = fixed_size_unique(nb)
 
         def pool_rows(pool):
             return pool[uniq][inverse]
@@ -521,16 +544,12 @@ class Trainer(object):
     def _graph_gate(self, kind="train", profiling=False):
         """None when the grouped loops replay a CUDA graph of the ``kind``
         ("train" or "eval") step, else why they run it eagerly: the CPU;
-        a mesh (its collectives are not captured); ``dedup_neighbors``
-        (``torch.unique``'s output size is a host sync); and for training
-        a profiling epoch (it runs per step) and dropout where this torch
-        cannot register a generator with a graph."""
+        and for training a profiling epoch (it runs per step) and dropout
+        where this torch cannot register a generator with a graph. A mesh
+        (its collectives captured) and ``dedup_neighbors`` (a fixed-size
+        unique) take the graph."""
         if self.device.type != "cuda":
             return "the CPU"
-        if self.mesh is not None:
-            return "a mesh"
-        if self._dedup:
-            return "dedup_neighbors"
         if kind == "train":
             if profiling:
                 return "a profiling epoch"
@@ -538,6 +557,17 @@ class Trainer(object):
                                                    "register_generator_state"):
                 return "dropout without CUDAGraph.register_generator_state"
         return None
+
+    def train_dispatch(self, group, profiling=False):
+        """How train steps dispatched in groups of ``group`` (0: per step)
+        run, in words: whether a step graph is replayed, or the gate's
+        reason why not."""
+        if not group:
+            return "per step"
+        reason = self._graph_gate("train", profiling)
+        return "groups of {} batches, {}".format(
+            group, "step graph replayed" if reason is None
+            else "no step graph ({})".format(reason))
 
     def _graph(self, kind, data, batch_size):
         """The ``kind`` step's graph over ``data``, captured anew when it
@@ -583,11 +613,7 @@ class Trainer(object):
         epoch are traced, one step per dispatch."""
         profiling = self._profile_dir is not None and epoch == 0
         group = 0 if profiling else self._train_group_size()
-        reason = self._graph_gate("train", profiling)
-        logging.info("Train dispatch: %s", "per step" if not group else
-                     "groups of {} batches, {}".format(
-                         group, "step graph replayed" if reason is None
-                         else "no step graph ({})".format(reason)))
+        logging.info("Train dispatch: %s", self.train_dispatch(group, profiling))
         self.model.train()
         tic = time.time()
         if group:

@@ -203,7 +203,9 @@ class RowShardedLookup(torch.autograd.Function):
     over ``group`` (each id lies in exactly one rank's range, so the sum
     adds one vector to zeros, exactly). Every rank of the group holds the
     same ``rows`` and gets the same gradient of the output, so backward
-    is this rank's rows only, with no collective."""
+    is this rank's rows only, with no collective. A step graph captures
+    it (engine/step_graph.py): its shapes follow ``rows`` and the
+    table's, never the ids' values, and nothing waits on the host."""
 
     @staticmethod
     def forward(ctx, table, rows, lo, group):

@@ -108,7 +108,9 @@ def set_dropout_generator(module, generator, batch_slice=None):
 
 class _AllReduceSum(torch.autograd.Function):
     """Sum over a process group; the gradient of every rank's input is
-    the sum of the ranks' output gradients."""
+    the sum of the ranks' output gradients. A step graph captures both
+    collectives (engine/step_graph.py): neither reads a value on the
+    host or makes a tensor whose size depends on the data."""
 
     @staticmethod
     def forward(ctx, x, group):

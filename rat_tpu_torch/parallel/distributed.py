@@ -14,8 +14,9 @@ then runs its own contiguous slice of each (:func:`process_local_rows`).
 The JAX package's ``host_local_*_to_global`` helpers, which assemble a
 global array from each host's rows, have no counterpart: a process here
 only ever holds its local tensors, and the collectives it needs are
-written out where they run. The ``[G, B]`` index-group variant goes with
-the grouped ``lax.scan`` dispatch, which the port leaves out.
+written out where they run. The ``[G, B]`` index-group variant has none
+either: the grouped dispatch slices each batch of a group as it runs it
+(a step graph reads its slice of its static row buffer).
 
 Multi-host runs take the same path (give every host MASTER_ADDR), but
 have not been run on cards; caches and checkpoints are written by rank
@@ -42,6 +43,9 @@ def initialize_distributed(device=None, init_method=None, world_size=None,
     ``device``: this rank's device; None means ``cuda:LOCAL_RANK``.
     The backend is ``nccl`` for a CUDA device and ``gloo`` for the CPU;
     a collective that waits ``timeout_s`` seconds for a peer fails.
+    The group keeps torch's and NCCL's defaults: a CUDA graph of the
+    train or eval step captures its collectives with them, once an eager
+    step has created the communicators (engine/step_graph.py).
     Returns (world size, rank)."""
     if device is None:
         device = "cuda:{}".format(int(os.environ.get("LOCAL_RANK", 0)))

@@ -156,11 +156,12 @@ def collective_audit(n_devices=8, model_axis=2):
 
 def time_ab(device, steps=256, group=64, batch_size=4096, n_rows=200_000):
     """Examples/s of the ML-Tag bench step with the flag off and on, in
-    grouped dispatches of ``group`` steps (``Trainer.train_scan``; the
-    graph gate closes the CUDA graph under ``dedup_neighbors``, as the
-    log says): one warm window of ``group`` steps, then the best of 3
-    windows of ``steps``. The flag reaches the bench's params through
-    RAT_AB_OVERRIDE, which is restored afterwards."""
+    grouped dispatches of ``group`` steps (``Trainer.train_scan``; each
+    arm prints its dispatch, ``Trainer.train_dispatch``: on a card both
+    replay the step graph, on the CPU both step eagerly): one warm
+    window of ``group`` steps, then the best of 3 windows of ``steps``.
+    The flag reaches the bench's params through RAT_AB_OVERRIDE, which
+    is restored afterwards."""
     before = os.environ.get("RAT_AB_OVERRIDE")
     rates = {}
     try:
@@ -172,6 +173,8 @@ def time_ab(device, steps=256, group=64, batch_size=4096, n_rows=200_000):
             trainer, data, idx, B = _bench_setup("mltag", batch_size=batch_size,
                                                  n_rows=n_rows, device=device)
             idx_group = torch.stack([idx[i % len(idx)] for i in range(group)])
+            print("dedup={} dispatch: {}".format(dedup, trainer.train_dispatch(group)),
+                  flush=True)
 
             def window(n):
                 for _ in range(n // group):

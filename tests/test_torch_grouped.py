@@ -277,16 +277,18 @@ def test_eval_groups_follow_the_jax_dispatch(tiny_feature_map, demo_params):
 
 
 @pytest.mark.parametrize("case, want", [
-    ("cpu", "the CPU"), ("card", None), ("mesh", "a mesh"),
-    ("dedup", "dedup_neighbors"), ("profiling", "a profiling epoch"),
+    ("cpu", "the CPU"), ("card", None), ("mesh", None),
+    ("dedup", None), ("profiling", "a profiling epoch"),
     ("sgd", None), ("dropout", "dropout"), ("eval_profiling", None),
     ("eval_dropout", None)])
 def test_graph_gate_answers(tiny_feature_map, demo_params, monkeypatch, case, want):
     """The gate's answer for each run it closes, checked in that order; the
     card's answer is read with the Trainer's device set to CUDA (no step
     runs). Any optimizer takes the graph (its step runs eagerly after each
-    replay). Dropout closes it only where this torch cannot register a
-    generator with a graph; evaluation ignores dropout and profiling."""
+    replay), and so do a mesh (its collectives captured) and
+    ``dedup_neighbors`` (a fixed-size unique). Dropout closes it only where
+    this torch cannot register a generator with a graph; evaluation
+    ignores dropout and profiling."""
     over = {"sgd": {"optimizer": "sgd"}, "eval_dropout": {"emb_dropout": 0.1},
             "dedup": {"dedup_neighbors": True}, "dropout": {"emb_dropout": 0.1}}
     tr = Trainer(_port_map(tiny_feature_map), dict(demo_params, **over.get(case, {})),
@@ -387,6 +389,8 @@ def test_chip_smoke_grouped_phase_on_cpu(tmp_path):
     assert res["kkbox"]["dropout"] and res["kkbox"]["batch_norm"]
     assert res["kkbox"]["generator_state_equal"]
     assert set(res["steady_host_ms_per_step"]) == {"per_step", "grouped"}
+    assert res["dedup"]["bit_equal"] and res["dedup"]["equal_to_plain"]
+    assert res["dedup"]["gate"] == "the CPU" and res["dedup"]["steps"] == 8
     # the trainer is left in the state it was found in
     for n, p in trainer.model.state_dict().items():
         assert torch.equal(p, before[n]), n

@@ -21,6 +21,16 @@ from rat_tpu_torch.engine import Trainer
 from rat_tpu_torch.parallel.dryrun import tiny_feature_map, tiny_params
 from torch_mesh_world import run_world
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One CPU thread for the in-process runs, as the ranks of the worlds
+    have: six test workers share the host."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 RETRIEVAL = {"used_col_indices": [0, 1, 2], "split_type": "10-fold", "label_wise": False,
              "pre_retrieval": True, "qry_batch_size": 500, "db_chunk_size": 1000,
              "topK": 3}
@@ -118,7 +128,10 @@ def test_chip_smoke_mesh_phase_on_cpu(tmp_path):
     in turn equal the unsharded scan; (b) a one-rank gloo group and a 1x1
     mesh (on the card it is NCCL): the sharded 10-fold cache equal to the
     unsharded neighbours, the first step equal to the non-mesh one bit for bit, a
-    fit, the round trips; no kernel launches on the CPU."""
+    fit, the round trips, the per-step and grouped steps and evaluations
+    from one state equal bit for bit (on the CPU both eager: the gate's
+    reason is the CPU), a BatchNorm trainer's eager and grouped steps
+    equal; no kernel launches on the CPU."""
     import chip_smoke
     vocab = {"user_id": 60, "item_id": 80, "tag_id": 120}
     pool, test = chip_smoke.mltag_arrays(0, 3000, 300, vocab=vocab)
@@ -127,9 +140,16 @@ def test_chip_smoke_mesh_phase_on_cpu(tmp_path):
     assert res["equal"] and res["shards"] == 4 and res["shard_rows"] == 3000
     assert launches == {"cross_intra_block": 0, "bm25_topk": 0}
     trainer, gen, _ = chip_smoke.train("cpu", 0, pool, test, 64, str(tmp_path))
-    res, launches = chip_smoke.mesh_train("cpu", 0, pool, trainer.valid_gen, 64,
-                                          str(tmp_path), gen, trainer, timing_steps=2)
+    res, launches = chip_smoke.mesh_train(
+        "cpu", 0, pool, trainer.valid_gen, 64, str(tmp_path), gen, trainer, timing_steps=2,
+        graph_sizes={"group": 4, "groups": 2, "window": 4, "bn_steps": 3})
     assert launches == {"cross_intra_block": 0, "bm25_topk": 0}
     assert res["steps"] == len(gen) and res["first_step_loss_abs_err"] == 0
     assert res["first_step_grad_max_abs_err"] == 0 and res["AUC"] > 0.55
     assert len(res["ms_per_step_mesh"]) == len(res["ms_per_step_plain"]) == 2
+    graphs = res["graphs"]
+    assert graphs["steps"] == 8 and graphs["bit_equal"] and graphs["gate"] == "the CPU"
+    assert graphs["replays"] == 0 and graphs["eval"]["pred_bit_equal"]
+    assert graphs["eval"]["rows"] == trainer.valid_gen.num_samples
+    assert graphs["batch_norm"]["bit_equal"] and graphs["batch_norm"]["steps"] == 3
+    assert set(graphs["steady_host_ms_per_step"]) == {"per_step", "graphed"}

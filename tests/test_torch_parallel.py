@@ -11,7 +11,11 @@ updated weights to the port's single process: loss within 1e-6,
 gradients within rtol 1e-5 and an atol of 1e-7 plus 1e-6 of the
 tensor's largest gradient (float32 partial sums reduced in another
 order), as tests/test_torch_train.py holds the port to JAX. The same
-world resumes a run from a full train state and runs the dry run.
+world resumes a run from a full train state and runs the dry run, and
+for every case runs what a step graph captures (StepGraph._step, run
+eagerly: the train step on the static row buffer and float32 valid
+count, the eval forward on the rank's slice), held bit for bit to the
+per-step mesh path.
 """
 
 import json
@@ -152,6 +156,49 @@ out["resume"] = {"whole": whole.model_state(), "resumed": resumed.model_state(),
                  "resumed_opt": resumed._optimizer_state()["state"],
                  "losses": (whole.step_losses[-8:], resumed.step_losses)}
 out["dryrun"] = dryrun_on_mesh(mesh)
+
+# what a step graph captures, run eagerly, against the per-step mesh path
+from rat_tpu_torch.engine.step_graph import StepGraph
+from rat_tpu_torch.parallel import process_local_rows
+
+def grads_of(trainer):
+    grads = {}
+    for pname, p in trainer.model.named_parameters():
+        if p.grad is not None:
+            g = p.grad.detach()
+            if pname in trainer._sharded:
+                g = trainer._gather_rows(g, trainer._sharded[pname][0])
+            grads[pname] = g.clone()
+    return grads
+
+out["graph_step"] = {}
+for name, (over, valid, from_jax) in cases.items():
+    arms = {}
+    for arm in ("per_step", "graph"):
+        trainer = Trainer(fm, tiny_params(**over), mesh=mesh)
+        if from_jax:
+            trainer.load_model_state(jax_init)
+        data = trainer.device_split(gen)
+        if arm == "per_step":
+            loss = trainer.loss_and_grads(data, idx, valid)
+            grads = grads_of(trainer)
+            trainer.model.eval()
+            with torch.no_grad():
+                res = trainer._forward(data, process_local_rows(idx, mesh))
+            pred, true = res["y_pred"][:, 0], res["y_true"][:, 0]
+        else:
+            train = StepGraph(trainer, "train", data, len(idx), None)
+            train.idx.copy_(idx)
+            train.valid.fill_(valid)
+            loss, = train._step(captured=True)
+            grads = grads_of(trainer)
+            trainer.model.eval()
+            evals = StepGraph(trainer, "eval", data, len(idx), None)
+            evals.idx.copy_(idx)
+            pred, true = evals._step(captured=True)
+        arms[arm] = {"loss": loss.clone(), "grads": grads, "pred": pred.clone(),
+                     "true": true.clone()}
+    out["graph_step"][name] = arms
 torch.save(out, "rank%d.pt" % mesh.rank)
 """
 
@@ -265,6 +312,32 @@ def test_mesh_resume_equals_uninterrupted(world):
             if torch.is_tensor(v):
                 np.testing.assert_allclose(res["resumed_opt"][i][key].numpy(), v.numpy(),
                                            rtol=1e-6, atol=1e-8)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_graph_step_matches_per_step_mesh_path(world, case):
+    """What a step graph captures (StepGraph._step: loss_and_grads on the
+    static row buffer and the float32 valid count; the eval forward on
+    this rank's slice of it), run eagerly on the gloo world, equals the
+    per-step mesh path bit for bit on every rank: the loss, every
+    gradient (the sharded tables gathered) and the eval predictions and
+    labels."""
+    for r in world:
+        per, graph = r["graph_step"][case]["per_step"], r["graph_step"][case]["graph"]
+        assert torch.equal(graph["loss"], per["loss"]), (graph["loss"], per["loss"])
+        assert sorted(graph["grads"]) == sorted(per["grads"])
+        for name, g in per["grads"].items():
+            assert torch.equal(graph["grads"][name], g), name
+        assert graph["pred"].shape == (B // 2,)
+        assert torch.equal(graph["pred"], per["pred"])
+        assert torch.equal(graph["true"], per["true"])
+    if case == "dedup_neighbors":
+        # the deduplicated gather builds the same grid as the plain one
+        plain = world[0]["graph_step"]["plain"]["graph"]
+        dedup = world[0]["graph_step"][case]["graph"]
+        assert torch.equal(dedup["loss"], plain["loss"])
+        assert all(torch.equal(dedup["grads"][n], g) for n, g in plain["grads"].items())
+        assert torch.equal(dedup["pred"], plain["pred"])
 
 
 def test_dryrun_on_a_2x2_mesh(world):
