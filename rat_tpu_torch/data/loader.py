@@ -41,6 +41,7 @@ import time
 
 import numpy as np
 
+from .. import tracing
 from ..parallel.distributed import from_rank0, on_rank0
 from ..retrieval.bm25 import RetrievalResults, _compute_idf_tables, bm25_topk_retrieval
 from ..retrieval.sharded import sharded_bm25_topk_retrieval
@@ -198,8 +199,9 @@ def _retrieve(db_np_data, qry_np_data, retrieval_configs, resume_tag=None,
         # one per slice
         weighting = engine_kwargs.get("idf_weighting") or (
             "robertson" if engine_kwargs.get("generation", 4) == 1 else "lucene")
-        extra["idf_tables"] = _compute_idf_tables(
-            np.ascontiguousarray(db_np_data, dtype=np.int64), weighting)
+        with tracing.span("bm25.idf"):
+            extra["idf_tables"] = _compute_idf_tables(
+                np.ascontiguousarray(db_np_data, dtype=np.int64), weighting)
     for lo in range(store.done_rows, Q, slice_rows):
         hi = min(lo + slice_rows, Q)
         store.append(lo, run(qry_np_data[lo:hi], **extra))
@@ -230,36 +232,43 @@ def _fold_self_retrieval(data_array, retrieval_configs, device=None):
                             retrieval_configs["split_type"]).group().split("-")[0])
     fold_size = int(np.ceil(len(retrieval_data_array) / fold_num))
     for fi in range(fold_num):
-        logging.info(f"{fold_num}-fold retrieval: process the {fi}-th fold")
-        fold_qry_data = retrieval_data_array[fi * fold_size: (fi + 1) * fold_size]
-        fold_db_data = np.concatenate(
-            [retrieval_data_array[: fi * fold_size],
-             retrieval_data_array[(fi + 1) * fold_size:]], axis=0)
-        fold_db_indices = np.concatenate(
-            [np.arange(fi * fold_size),
-             np.arange((fi + 1) * fold_size, len(retrieval_data_array))], axis=0)
-        if label_wise:
-            fold_db_labels = np.concatenate(
-                [retrieval_db_labels[: fi * fold_size],
-                 retrieval_db_labels[(fi + 1) * fold_size:]], axis=0)
-            parts_i, parts_v, parts_l = [], [], []
-            for sub, sub_indices in (("pos", np.nonzero(fold_db_labels)[0]),
-                                     ("neg", np.nonzero(1 - fold_db_labels)[0])):
-                res = _retrieve(fold_db_data[sub_indices], fold_qry_data,
-                                retrieval_configs,
-                                resume_tag="fold{}.{}".format(fi, sub), device=device)
-                parts_i.append(_sub_pool_rows(fold_db_indices, sub_indices, res.indices))
-                parts_v.append(res.values)
-                parts_l.append(res.lens)
-            retrieved_indices.append(np.concatenate(parts_i, axis=-1))  # Bx(2K)
-            retrieved_values.append(np.concatenate(parts_v, axis=-1))   # Bx(2K)
-            retrieved_lens.append(np.stack(parts_l, axis=-1))           # Bx2
-        else:
-            res = _retrieve(fold_db_data, fold_qry_data, retrieval_configs,
-                            resume_tag="fold{}".format(fi), device=device)
-            retrieved_indices.append(fold_db_indices[res.indices])
-            retrieved_values.append(res.values)
-            retrieved_lens.append(res.lens)
+        with tracing.span("retrieval.fold"):
+            logging.info(f"{fold_num}-fold retrieval: process the {fi}-th fold")
+            with tracing.span("retrieval.fold_pool"):
+                fold_qry_data = retrieval_data_array[fi * fold_size: (fi + 1) * fold_size]
+                fold_db_data = np.concatenate(
+                    [retrieval_data_array[: fi * fold_size],
+                     retrieval_data_array[(fi + 1) * fold_size:]], axis=0)
+                fold_db_indices = np.concatenate(
+                    [np.arange(fi * fold_size),
+                     np.arange((fi + 1) * fold_size, len(retrieval_data_array))], axis=0)
+                if label_wise:
+                    fold_db_labels = np.concatenate(
+                        [retrieval_db_labels[: fi * fold_size],
+                         retrieval_db_labels[(fi + 1) * fold_size:]], axis=0)
+            if label_wise:
+                parts_i, parts_v, parts_l = [], [], []
+                for sub, sub_indices in (("pos", np.nonzero(fold_db_labels)[0]),
+                                         ("neg", np.nonzero(1 - fold_db_labels)[0])):
+                    res = _retrieve(fold_db_data[sub_indices], fold_qry_data,
+                                    retrieval_configs,
+                                    resume_tag="fold{}.{}".format(fi, sub), device=device)
+                    with tracing.span("retrieval.remap"):
+                        parts_i.append(_sub_pool_rows(fold_db_indices, sub_indices,
+                                                      res.indices))
+                    parts_v.append(res.values)
+                    parts_l.append(res.lens)
+                with tracing.span("retrieval.remap"):
+                    retrieved_indices.append(np.concatenate(parts_i, axis=-1))  # Bx(2K)
+                    retrieved_values.append(np.concatenate(parts_v, axis=-1))   # Bx(2K)
+                    retrieved_lens.append(np.stack(parts_l, axis=-1))           # Bx2
+            else:
+                res = _retrieve(fold_db_data, fold_qry_data, retrieval_configs,
+                                resume_tag="fold{}".format(fi), device=device)
+                with tracing.span("retrieval.remap"):
+                    retrieved_indices.append(fold_db_indices[res.indices])
+                    retrieved_values.append(res.values)
+                    retrieved_lens.append(res.lens)
     return (np.concatenate(retrieved_indices),
             np.concatenate(retrieved_values),
             np.concatenate(retrieved_lens))
@@ -268,8 +277,9 @@ def _fold_self_retrieval(data_array, retrieval_configs, device=None):
 def _pool_retrieval(data_array, db_array, retrieval_configs, device=None):
     """Retrieval of split queries against an external pool."""
     used_cols = retrieval_configs["used_col_indices"]
-    db_data = db_array[:, used_cols].astype(int)
-    qry_data = data_array[:, used_cols].astype(int)
+    with tracing.span("retrieval.fold_pool"):
+        db_data = db_array[:, used_cols].astype(int)
+        qry_data = data_array[:, used_cols].astype(int)
     if retrieval_configs.get("label_wise", False):
         db_labels = db_array[:, -1].astype(int)
         parts_i, parts_v, parts_l = [], [], []
@@ -277,13 +287,15 @@ def _pool_retrieval(data_array, db_array, retrieval_configs, device=None):
                                  ("neg", np.nonzero(1 - db_labels)[0])):
             res = _retrieve(db_data[sub_indices], qry_data, retrieval_configs,
                             resume_tag="pool." + sub, device=device)
-            parts_i.append(_sub_pool_rows(np.arange(len(db_labels)), sub_indices,
-                                          res.indices))
+            with tracing.span("retrieval.remap"):
+                parts_i.append(_sub_pool_rows(np.arange(len(db_labels)), sub_indices,
+                                              res.indices))
             parts_v.append(res.values)
             parts_l.append(res.lens)
-        return (np.concatenate(parts_i, axis=-1),
-                np.concatenate(parts_v, axis=-1),
-                np.stack(parts_l, axis=-1))
+        with tracing.span("retrieval.remap"):
+            return (np.concatenate(parts_i, axis=-1),
+                    np.concatenate(parts_v, axis=-1),
+                    np.stack(parts_l, axis=-1))
     res = _retrieve(db_data, qry_data, retrieval_configs, resume_tag="pool",
                     device=device)
     return res.indices, res.values, res.lens

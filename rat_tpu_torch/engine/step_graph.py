@@ -81,6 +81,7 @@ of kernel launches, and never waits for the card inside a group.
 
 import torch
 
+from .. import tracing
 from ..ops import cross_intra_block as k1
 from ..parallel import process_local_rows
 
@@ -109,6 +110,9 @@ class StepGraph(object):
         self.grads = []          # (parameter, its gradient in the pool)
         self.k1_per_replay = 0
         self.replays = 0
+        # a replay's span and counter names (rat_tpu_torch.tracing), made
+        # once: a replay runs per batch
+        self._replay_span, self._replays = "graph.replay." + kind, "graph.replays." + kind
 
     def _step(self, captured):
         """The outputs of one step; in training the whole step when run
@@ -124,12 +128,14 @@ class StepGraph(object):
         return out["y_pred"][:, 0], out["y_true"][:, 0]
 
     def _capture(self):
-        graph = torch.cuda.CUDAGraph()
-        if self.kind == "train" and self.trainer._has_dropout():
-            graph.register_generator_state(self.trainer.dropout_generator)
-        before = k1.captured
-        with torch.cuda.graph(graph, stream=self.stream):
-            outputs = self._step(captured=True)
+        tracing.count("graph.captures." + self.kind)
+        with tracing.span("graph.capture." + self.kind):
+            graph = torch.cuda.CUDAGraph()
+            if self.kind == "train" and self.trainer._has_dropout():
+                graph.register_generator_state(self.trainer.dropout_generator)
+            before = k1.captured
+            with torch.cuda.graph(graph, stream=self.stream):
+                outputs = self._step(captured=True)
         self.k1_per_replay = k1.captured - before
         self.graph, self.outputs = graph, outputs
         self.grads = [(p, p.grad) for p in self.trainer.model.parameters()
@@ -165,13 +171,16 @@ class StepGraph(object):
                 current.wait_stream(self.stream)
                 self.warm = True
                 continue
-            self.graph.replay()
+            with tracing.span(self._replay_span):
+                self.graph.replay()
+                for o, r in zip(outs, self.outputs):
+                    o[i].copy_(r)
             self.replays += 1
+            tracing.count(self._replays)
             k1.launches += self.k1_per_replay
-            for o, r in zip(outs, self.outputs):
-                o[i].copy_(r)
             if self.kind == "train":
-                for p, grad in self.grads:
-                    p.grad = grad
-                self.trainer.optimizer.step()
+                with tracing.span("train.optim"):
+                    for p, grad in self.grads:
+                        p.grad = grad
+                    self.trainer.optimizer.step()
         return outs

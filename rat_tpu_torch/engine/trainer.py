@@ -50,7 +50,10 @@ dropout without ``register_generator_state``); those runs group their
 dispatch all the same and run each step eagerly. A profiling epoch runs
 per step. The full train state (``save_train_state``/``restore_train_state``, engine/checkpoint.py)
 resumes a run exactly. ``profile_dir`` writes a torch.profiler trace of
-steps 2 to 2 + ``profile_steps`` of the first epoch. ``dedup_neighbors``
+steps 2 to 2 + ``profile_steps`` of the first epoch, and beside it the
+program's spans recorded meanwhile (rat_tpu_torch.tracing: the epoch,
+the dispatch, captures, replays, the optimizer's eager steps, the
+evaluation and the checkpoint each record one). ``dedup_neighbors``
 (or RAT_TPU_DEDUP_NEIGHBORS=1) gathers each batch's pool rows once per
 distinct row and expands them with the inverse index of a fixed-size
 unique: the same grid, at shapes that do not depend on the data.
@@ -86,8 +89,10 @@ Under a mesh (``mesh``, parallel/mesh.py), one process per device:
   one, on every rank.
 """
 
+import json
 import logging
 import os
+import threading
 import time
 import weakref
 from collections import deque
@@ -96,6 +101,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import tracing
 from ..data.block_loader import DataBlockGenerator
 from ..metrics import evaluate_metrics
 from ..models import build_model, rat_m2_fast_forward
@@ -348,39 +354,42 @@ class Trainer(object):
         the array's ``id()``; the cache holds the array, so that its
         address cannot pass to a later array while the key lives. Block
         streams pass False: their pools go with their block."""
-        def up(arr, dtype):
-            t = torch.from_numpy(np.ascontiguousarray(arr, dtype=dtype)).to(self.device)
-            self._resident.add(t)
-            return t
+        with tracing.span("train.device_split") as sp:
+            def up(arr, dtype):
+                t = torch.from_numpy(np.ascontiguousarray(arr, dtype=dtype)).to(
+                    self.device)
+                self._resident.add(t)
+                sp.add(bytes=t.numel() * t.element_size())
+                return t
 
-        darray = gen.darray
-        data = {"tokens": up(darray[:, :-1], np.int64),
-                "labels": up(darray[:, -1], np.float32)}
-        if self._has_numeric:
-            data["numeric"] = up(darray[:, :-1], np.float32)
-        if gen.retrieval_augmented:
-            if gen.retr_lens.ndim != 1:
-                raise ValueError(
-                    "RIM does not support label-wise retrieval-enhanced training")
-            pool = gen.pool_darray
-            pool_key = getattr(gen, "retrieval_pool_fname", None)
-            if pool_key in (None, "self"):
-                pool_key = id(pool)
-            cached = self._pool_device_cache if share_pool else None
-            if cached is not None and cached[0] == pool_key:
-                data.update(cached[1])
-            else:
-                pool_up = {"pool_tokens": up(pool[:, :-1], np.int64),
-                           "pool_labels": up(pool[:, -1], np.float32)}
-                if self._has_numeric:
-                    pool_up["pool_numeric"] = up(pool[:, :-1], np.float32)
-                if share_pool:
-                    self._pool_device_cache = (pool_key, pool_up, pool)
-                data.update(pool_up)
-            data["nbr"] = up(gen.neighbor_gather_indices(), np.int64)
-            if self.params.get("neighbor_padding", "wrap") == "mask":
-                data["nbr_ok"] = up(gen.neighbor_valid_mask(), np.float32)
-        return data
+            darray = gen.darray
+            data = {"tokens": up(darray[:, :-1], np.int64),
+                    "labels": up(darray[:, -1], np.float32)}
+            if self._has_numeric:
+                data["numeric"] = up(darray[:, :-1], np.float32)
+            if gen.retrieval_augmented:
+                if gen.retr_lens.ndim != 1:
+                    raise ValueError(
+                        "RIM does not support label-wise retrieval-enhanced training")
+                pool = gen.pool_darray
+                pool_key = getattr(gen, "retrieval_pool_fname", None)
+                if pool_key in (None, "self"):
+                    pool_key = id(pool)
+                cached = self._pool_device_cache if share_pool else None
+                if cached is not None and cached[0] == pool_key:
+                    data.update(cached[1])
+                else:
+                    pool_up = {"pool_tokens": up(pool[:, :-1], np.int64),
+                               "pool_labels": up(pool[:, -1], np.float32)}
+                    if self._has_numeric:
+                        pool_up["pool_numeric"] = up(pool[:, :-1], np.float32)
+                    if share_pool:
+                        self._pool_device_cache = (pool_key, pool_up, pool)
+                    data.update(pool_up)
+                data["nbr"] = up(gen.neighbor_gather_indices(), np.int64)
+                if self.params.get("neighbor_padding", "wrap") == "mask":
+                    data["nbr_ok"] = up(gen.neighbor_valid_mask(), np.float32)
+            return data
 
     def _forward(self, data, idx):
         """Gather one batch and run the fused or the module forward."""
@@ -453,8 +462,10 @@ class Trainer(object):
 
     def train_step(self, data, idx, valid):
         """One step: loss, gradients, clip, Adam. Returns the loss."""
-        loss = self.loss_and_grads(data, idx, valid)
-        self.optimizer.step()
+        tracing.count("train.eager_steps")
+        with tracing.span("train.step"):
+            loss = self.loss_and_grads(data, idx, valid)
+            self.optimizer.step()
         return loss
 
     def _block_stream(self, views, rng=None):
@@ -616,11 +627,12 @@ class Trainer(object):
         logging.info("Train dispatch: %s", self.train_dispatch(group, profiling))
         self.model.train()
         tic = time.time()
-        if group:
-            losses, examples = self._train_one_epoch_grouped(train_gen, group)
-        else:
-            losses, examples = self._train_one_epoch_stepwise(train_gen, epoch)
-        step_losses = torch.cat([x.reshape(-1) for x in losses]).cpu().numpy()
+        with tracing.span("train.epoch"):
+            if group:
+                losses, examples = self._train_one_epoch_grouped(train_gen, group)
+            else:
+                losses, examples = self._train_one_epoch_stepwise(train_gen, epoch)
+            step_losses = torch.cat([x.reshape(-1) for x in losses]).cpu().numpy()
         self.step_losses.extend(step_losses.tolist())
         epoch_secs = time.time() - tic
         # a float32 running sum, as the JAX package's
@@ -675,13 +687,15 @@ class Trainer(object):
             nonlocal pend, cur, dispatched, examples, last_beat
             if not pend:
                 return
-            idx = self._upload(np.stack([i for i, _ in pend]).astype(np.int64))
-            valids = [v for _, v in pend]
-            if len(pend) == group:
-                losses.append(self.train_scan(cur, idx, valids))
-            else:
-                losses.extend(self.train_step(cur, idx[i], v) for i, v in enumerate(valids))
-            del idx
+            with tracing.span("train.group"):
+                idx = self._upload(np.stack([i for i, _ in pend]).astype(np.int64))
+                valids = [v for _, v in pend]
+                if len(pend) == group:
+                    losses.append(self.train_scan(cur, idx, valids))
+                else:
+                    losses.extend(self.train_step(cur, idx[i], v)
+                                  for i, v in enumerate(valids))
+                del idx
             if release:
                 cur = None
                 self._graphs.pop("train", None)
@@ -728,14 +742,26 @@ class Trainer(object):
         return profiler
 
     def _stop_profile(self, profiler):
-        """Stop the trace and write it to ``profile_dir``; returns None."""
+        """Stop the trace and write it to ``profile_dir`` as
+        ``trace_<pid>.json``, and the program's spans recorded meanwhile
+        (rat_tpu_torch.tracing) beside it as ``spans_<pid>.json``, Chrome
+        trace events on the trace's timebase; returns None."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         profiler.stop()
         os.makedirs(self._profile_dir, exist_ok=True)
-        path = os.path.join(self._profile_dir, "trace_{}.json".format(os.getpid()))
+        pid = os.getpid()
+        path = os.path.join(self._profile_dir, "trace_{}.json".format(pid))
         profiler.export_chrome_trace(path)
         logging.info("Profiler trace written to {}".format(path))
+        with open(path) as fh:
+            # the ns its microseconds count from; absent, they are absolute
+            base = json.load(fh).get("baseTimeNanoseconds", 0)
+        events = tracing.chrome_events(tracing.take(), base, pid, threading.get_native_id())
+        spans_path = os.path.join(self._profile_dir, "spans_{}.json".format(pid))
+        with open(spans_path, "w") as fh:
+            json.dump({"traceEvents": events, "baseTimeNanoseconds": base}, fh)
+        logging.info("Program spans written to {}".format(spans_path))
         return None
 
     def on_batch_end(self, batch):
@@ -754,30 +780,31 @@ class Trainer(object):
         return reduced_lr
 
     def checkpoint_and_earlystop(self, epoch, logs, min_delta=1e-6):
-        monitor_value = self._monitor.get_value(logs)
-        if (self._monitor_mode == "min" and
-                monitor_value > self._best_metric - min_delta) or \
-           (self._monitor_mode == "max" and
-                monitor_value < self._best_metric + min_delta):
-            self._stopping_steps += 1
-            logging.info("Monitor({}) STOP: {:.6f} !".format(
-                self._monitor_mode, monitor_value))
-            if self._reduce_lr_on_plateau:
-                current_lr = self.lr_decay()
-                logging.info("Reduce learning rate on plateau: {:.6f}"
-                             .format(current_lr))
-        else:
-            self._stopping_steps = 0
-            self._best_metric = monitor_value
-            if self._save_best_only:
-                logging.info("Save best model: monitor({}): {:.6f}"
-                             .format(self._monitor_mode, monitor_value))
+        with tracing.span("train.checkpoint"):
+            monitor_value = self._monitor.get_value(logs)
+            if (self._monitor_mode == "min" and
+                    monitor_value > self._best_metric - min_delta) or \
+               (self._monitor_mode == "max" and
+                    monitor_value < self._best_metric + min_delta):
+                self._stopping_steps += 1
+                logging.info("Monitor({}) STOP: {:.6f} !".format(
+                    self._monitor_mode, monitor_value))
+                if self._reduce_lr_on_plateau:
+                    current_lr = self.lr_decay()
+                    logging.info("Reduce learning rate on plateau: {:.6f}"
+                                 .format(current_lr))
+            else:
+                self._stopping_steps = 0
+                self._best_metric = monitor_value
+                if self._save_best_only:
+                    logging.info("Save best model: monitor({}): {:.6f}"
+                                 .format(self._monitor_mode, monitor_value))
+                    self.save_weights(self.checkpoint)
+            if self._stopping_steps * self._every_x_epochs >= self._patience:
+                self._stop_training = True
+                logging.info("Early stopping at epoch={:g}".format(epoch))
+            if not self._save_best_only:
                 self.save_weights(self.checkpoint)
-        if self._stopping_steps * self._every_x_epochs >= self._patience:
-            self._stop_training = True
-            logging.info("Early stopping at epoch={:g}".format(epoch))
-        if not self._save_best_only:
-            self.save_weights(self.checkpoint)
 
     # ---- evaluation -------------------------------------------------------
     #: eval batches per grouped dispatch (the JAX package's)
@@ -797,15 +824,16 @@ class Trainer(object):
 
         def flush(release):
             nonlocal cur
-            idx = self._upload(np.stack(ids).astype(np.int64))
-            if graphed:
-                pred, true = self._graph("eval", cur, idx.shape[1]).run(idx)
-            else:
-                outs = [self._forward(cur, row if self.mesh is None
-                                      else process_local_rows(row, self.mesh))
-                        for row in idx]
-                pred = torch.stack([o["y_pred"][:, 0] for o in outs])
-                true = torch.stack([o["y_true"][:, 0] for o in outs])
+            with tracing.span("eval.dispatch"):
+                idx = self._upload(np.stack(ids).astype(np.int64))
+                if graphed:
+                    pred, true = self._graph("eval", cur, idx.shape[1]).run(idx)
+                else:
+                    outs = [self._forward(cur, row if self.mesh is None
+                                          else process_local_rows(row, self.mesh))
+                            for row in idx]
+                    pred = torch.stack([o["y_pred"][:, 0] for o in outs])
+                    true = torch.stack([o["y_true"][:, 0] for o in outs])
             if release:
                 cur = None
                 self._graphs.pop("eval", None)
@@ -843,7 +871,8 @@ class Trainer(object):
         preds, trues, groups = [], [], []
 
         def drain_one():
-            pred, true, valids = _fetched(pending.popleft())
+            with tracing.span("eval.drain"):
+                pred, true, valids = _fetched(pending.popleft())
             for i, v in enumerate(valids):
                 preds.append(pred[i][:v])
                 trues.append(true[i][:v])
@@ -878,14 +907,17 @@ class Trainer(object):
                      for row in full)
 
     def evaluate(self, data_gen, data=None):
-        y_pred, y_true = self._eval_collect(data_gen, data)
-        return evaluate_metrics(y_true.astype(np.float64),
-                                y_pred.astype(np.float64),
-                                self._validation_metrics)
+        with tracing.span("eval"):
+            y_pred, y_true = self._eval_collect(data_gen, data)
+            with tracing.span("eval.metrics"):
+                return evaluate_metrics(y_true.astype(np.float64),
+                                        y_pred.astype(np.float64),
+                                        self._validation_metrics)
 
     def predict(self, data_gen, data=None):
-        y_pred, _ = self._eval_collect(data_gen, data)
-        return y_pred.astype(np.float64)
+        with tracing.span("eval"):
+            y_pred, _ = self._eval_collect(data_gen, data)
+            return y_pred.astype(np.float64)
 
     def count_parameters(self, count_embedding=True):
         """The parameters of the whole model (sharded tables at their full

@@ -37,6 +37,7 @@ from collections import namedtuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..ops.bm25_topk import bm25_topk
 from ..ops.bm25_topk import bm25_topk_reference as _scan_topk
 from ..utils.device import resolve_device
@@ -96,6 +97,10 @@ def _pack_idf_tables(idf_tables, device):
         vals[f, :len(v)] = v
         lens[f] = len(k)
     return tuple(torch.from_numpy(a).to(device) for a in (keys, vals, lens))
+
+
+def _nbytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def _idf_lookup(qry, keys, vals, key_lens):
@@ -197,8 +202,9 @@ def bm25_topk_retrieval(db_np_data, qry_np_data,
     if idf_weighting is None:
         idf_weighting = "robertson" if generation == 1 else "lucene"
     robertson = idf_weighting == "robertson"
-    db_np_data = np.ascontiguousarray(db_np_data, dtype=np.int64)
-    qry_np_data = np.ascontiguousarray(qry_np_data, dtype=np.int64)
+    with tracing.span("bm25.prepare"):
+        db_np_data = np.ascontiguousarray(db_np_data, dtype=np.int64)
+        qry_np_data = np.ascontiguousarray(qry_np_data, dtype=np.int64)
     N, F = db_np_data.shape
     Q = len(qry_np_data)
     if exact_match_col_indices:
@@ -211,11 +217,14 @@ def bm25_topk_retrieval(db_np_data, qry_np_data,
                                       exact_match_col_indices, qry_batch_size,
                                       topK, device)
     if idf_tables is None:
-        idf_tables = _compute_idf_tables(db_np_data, idf_weighting)
-    idf_pack = _pack_idf_dense(idf_tables, device)
-    dense_idf = idf_pack is not None
-    if not dense_idf:
-        idf_pack = _pack_idf_tables(idf_tables, device)
+        with tracing.span("bm25.idf"):
+            idf_tables = _compute_idf_tables(db_np_data, idf_weighting)
+    with tracing.span("bm25.idf_pack") as sp:
+        idf_pack = _pack_idf_dense(idf_tables, device)
+        dense_idf = idf_pack is not None
+        if not dense_idf:
+            idf_pack = _pack_idf_tables(idf_tables, device)
+        sp.add(bytes=_nbytes(idf_pack))
 
     # field-major pool with at least topK rows: when K exceeds the pool,
     # the padding rows (score 0, or -inf under neg_pad) take the surplus
@@ -223,22 +232,26 @@ def bm25_topk_retrieval(db_np_data, qry_np_data,
     # Columns are padded to a multiple of 4, so that K2 copies its pool
     # tiles 16 bytes at a time; padding rows rank after every real row.
     cols = max(N, topK)
-    db_T = torch.zeros((F, cols + (-cols) % 4), dtype=torch.int32, device=device)
-    db_T[:, :N] = torch.from_numpy(db_np_data.T.astype(np.int32)).to(device)
-    qry_dev = torch.from_numpy(qry_np_data.astype(np.int32)).to(device)
+    with tracing.span("bm25.upload", bytes=4 * F * (N + Q)):
+        db_T = torch.zeros((F, cols + (-cols) % 4), dtype=torch.int32, device=device)
+        db_T[:, :N] = torch.from_numpy(db_np_data.T.astype(np.int32)).to(device)
+        qry_dev = torch.from_numpy(qry_np_data.astype(np.int32)).to(device)
     qry_batch_size = Q if qry_batch_size is None else qry_batch_size
     qry_batches = torch.split(qry_dev, max(qry_batch_size, 1))
     chunk_size = max(db_chunk_size or N, topK, 1)
 
-    parts = list(_scan_topk_batched(db_T, qry_batches, idf_pack, N, topK,
-                                    dense_idf, robertson, chunk_size))
+    with tracing.span("bm25.scan", calls=len(qry_batches)):
+        parts = list(_scan_topk_batched(db_T, qry_batches, idf_pack, N, topK,
+                                        dense_idf, robertson, chunk_size))
     if not parts:
         return RetrievalResults(np.zeros((0, topK)), np.zeros((0, topK), np.int64),
                                 np.zeros(0, np.int64))
-    V, I, L = (torch.cat(x) for x in zip(*parts))
-    return RetrievalResults(V.cpu().numpy().astype(np.float64),
-                            I.cpu().numpy().astype(np.int64),
-                            L.cpu().numpy().astype(np.int64))
+    with tracing.span("bm25.collect") as sp:
+        V, I, L = (torch.cat(x) for x in zip(*parts))
+        sp.add(bytes=_nbytes((V, I, L)))
+        return RetrievalResults(V.cpu().numpy().astype(np.float64),
+                                I.cpu().numpy().astype(np.int64),
+                                L.cpu().numpy().astype(np.int64))
 
 
 def _rows_as_void(a):
