@@ -793,8 +793,11 @@ def check_k3(rng, device, pool, test):
 
 def check_k1_grad(rng, device):
     """K1 under autograd: the Function's dx and weight gradients against
-    autograd of the plain version, for one random cotangent. Returns the
-    forward+backward times (ms) of both at the ML-Tag shape."""
+    autograd of the plain version, for one random cotangent. Each line
+    says whether the backward ran K1's backward kernel or autograd of the
+    plain block (the shapes the kernel does not take); the ML-Tag shapes
+    must run the kernel. Returns the forward+backward times (ms) of both
+    and the backward kernels' device ms at the ML-Tag shape."""
     shapes = [("mltag", 4096, 6, 4, 10, 2, 10), ("mltag_b4093", 4093, 6, 4, 10, 2, 10),
               ("kkbox", 4096, 6, 14, 40, 8, 10), ("heads1_dh_eq_d", 4096, 6, 4, 10, 1, 10),
               ("heads1_dh_eq_d40", 1024, 6, 14, 40, 1, 40)]
@@ -812,7 +815,10 @@ def check_k1_grad(rng, device):
             return torch.autograd.grad(fn(inputs[0], p, heads, dim_head, project_out),
                                        inputs, g)
 
+        before = (k1.grad_launches, k1.grad_plain)
         got = fwd_bwd(k1.cross_intra_block)
+        path = "kernel" if k1.grad_launches == before[0] + 1 else \
+            "plain" if k1.grad_plain == before[1] + 1 else "?"
         want = fwd_bwd(k1.cross_intra_block_reference)
         torch.cuda.synchronize()
         worst, worst_name, ok = 0.0, "", True
@@ -822,16 +828,19 @@ def check_k1_grad(rng, device):
             if err.max().item() >= worst:
                 worst, worst_name = err.max().item(), n
         print("K1 grad {:14s} B={:5d} t={} s={:2d} d={:2d} h={} dh={:2d}: dx and {} "
-              "weight grads, max_abs_err {:.3e} (at {}) (rtol 2e-3, atol 1e-4) {}".format(
-                  name, B, t, s, d, heads, dim_head, len(names), worst, worst_name,
-                  "ok" if ok else "FAIL"))
+              "weight grads ({} backward), max_abs_err {:.3e} (at {}) (rtol 2e-3, "
+              "atol 1e-4) {}".format(name, B, t, s, d, heads, dim_head, len(names), path,
+                                     worst, worst_name, "ok" if ok else "FAIL"))
         if not ok:
             raise AssertionError("K1's gradients disagree with the plain "
                                  "version's at " + name)
+        if name.startswith("mltag") and path != "kernel":
+            raise AssertionError("K1's backward kernel did not run at " + name)
         if name == "mltag":
             timed = fwd_bwd
     return {"fwd_bwd_ms": _cuda_ms(lambda: timed(k1.cross_intra_block), 20),
-            "plain_fwd_bwd_ms": _cuda_ms(lambda: timed(k1.cross_intra_block_reference), 20)}
+            "plain_fwd_bwd_ms": _cuda_ms(lambda: timed(k1.cross_intra_block_reference), 20),
+            "grad_kernel_ms": _kernel_ms(lambda: timed(k1.cross_intra_block), 20, "k1_grad")}
 
 
 def _grads(trainer, data, idx, valid):
@@ -1026,7 +1035,8 @@ def profile_train(trainer, train_gen, seed, steps=20, rows=15, label="train"):
     """Steady-state ms per train step over ``steps`` steps (host clock
     around a synchronize), then the same number of steps under
     torch.profiler: device time by kernel, K1's forward kernel against
-    the autograd backward of the blocks, and the idle share."""
+    the blocks' backward (K1's backward kernel, or autograd of the plain
+    block at shapes it does not take), and the idle share."""
     from torch.profiler import ProfilerActivity, profile
     data = trainer._train_data
     batches = _train_batches(trainer, train_gen, seed, 2 * steps + 2)
@@ -1053,8 +1063,8 @@ def profile_train(trainer, train_gen, seed, steps=20, rows=15, label="train"):
               label, steps, wall_ms, busy_ms, 1 - busy_ms / wall_ms, busy_ms / steps,
               ms_per_step))
     if k1_fwd_ms:
-        print("{} profile: K1 forward kernel {:.3f} ms, block backward (autograd of the "
-              "plain block, recomputed) {:.3f} ms of device time".format(
+        print("{} profile: K1 forward kernel {:.3f} ms, block backward {:.3f} ms of "
+              "device time".format(
                   label, k1_fwd_ms, k1_bwd_ms))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:rows]:
         print("{} profile: {:10.3f} ms {:6d} calls  {}".format(
@@ -3450,6 +3460,17 @@ def _print_build_report(device):
                                   staged.value)),
                               per_sm.value, warps.value,
                               "in shared memory" if staged.value else "read from L1/L2"))
+    area = ctypes.c_int()
+    fn = _build.load("cross_intra_block").k1_grad_occupancy
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.restype = ctypes.c_int
+    _build.check(fn(1 + MLTAG_RETRIEVAL["topK"], len(MLTAG_VOCAB) + 1, d, heads, dh,
+                    MLTAG_PARAMS["scale_dim"] * d, 1, ctypes.byref(area), ctypes.byref(warps),
+                    ctypes.byref(per_sm)), "K1 backward occupancy")
+    print("K1 backward main path (d=10, dh=10): {} registers, {} CTAs of {} warps per SM, "
+          "{} bytes of shared memory per warp".format(regs(k1_report, "k1_grad_kernel"),
+                                                      per_sm.value, warps.value,
+                                                      4 * area.value))
     if spilled:
         raise AssertionError("ptxas: K1/K2 kernels spill registers: {}".format(spilled))
 

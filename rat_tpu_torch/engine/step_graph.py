@@ -66,7 +66,9 @@ of kernel launches, and never waits for the card inside a group.
 - **K1's launches.** A capture records K1's launches (counted in
   ``cross_intra_block.captured``, not ``launches``); each replay adds
   the graph's count to ``cross_intra_block.launches``, which so stays
-  the number of K1 launches run on the card.
+  the number of K1 launches run on the card. The same holds for K1's
+  backward (``grad_captured``, ``grad_launches``), and each replay adds
+  the graph's plain backward calls to ``grad_plain``.
 - **Gradients.** The backward writes the gradients into the graph's
   memory pool; each replay hands those tensors back to the parameters'
   ``.grad`` before the optimizer steps, since a per-step call in between
@@ -109,6 +111,7 @@ class StepGraph(object):
         self.outputs = None
         self.grads = []          # (parameter, its gradient in the pool)
         self.k1_per_replay = 0
+        self.k1_grad_per_replay = self.k1_plain_per_replay = 0
         self.replays = 0
         # a replay's span and counter names (rat_tpu_torch.tracing), made
         # once: a replay runs per batch
@@ -133,10 +136,12 @@ class StepGraph(object):
             graph = torch.cuda.CUDAGraph()
             if self.kind == "train" and self.trainer._has_dropout():
                 graph.register_generator_state(self.trainer.dropout_generator)
-            before = k1.captured
+            before = (k1.captured, k1.grad_captured, k1.grad_plain)
             with torch.cuda.graph(graph, stream=self.stream):
                 outputs = self._step(captured=True)
-        self.k1_per_replay = k1.captured - before
+        self.k1_per_replay = k1.captured - before[0]
+        self.k1_grad_per_replay = k1.grad_captured - before[1]
+        self.k1_plain_per_replay = k1.grad_plain - before[2]
         self.graph, self.outputs = graph, outputs
         self.grads = [(p, p.grad) for p in self.trainer.model.parameters()
                       if p.grad is not None]
@@ -178,6 +183,8 @@ class StepGraph(object):
             self.replays += 1
             tracing.count(self._replays)
             k1.launches += self.k1_per_replay
+            k1.grad_launches += self.k1_grad_per_replay
+            k1.grad_plain += self.k1_plain_per_replay
             if self.kind == "train":
                 with tracing.span("train.optim"):
                     for p, grad in self.grads:

@@ -4,11 +4,12 @@ rat_tpu.models.fast_forward).
 The RATModel forward with each encoder block run through kernel K1
 (ops/cross_intra_block.py::cross_intra_block) on the module's own
 parameters: on a CUDA device every block is one kernel launch, on the
-CPU the block's plain version. It is differentiable: the block's
-backward is autograd of its plain version, so the Trainer trains and
-scores through here with ``use_pallas: true`` (the JAX package's switch
-for its fused path). Callers that only score wrap it in
-``torch.no_grad()``.
+CPU the block's plain version. It is differentiable: on a CUDA device
+the block's backward is K1's backward kernel (autograd of the plain
+version at shapes the kernel does not take, and on the CPU), so the
+Trainer trains and scores through here with ``use_pallas: true`` (the
+JAX package's switch for its fused path). Callers that only score wrap
+it in ``torch.no_grad()``.
 
 Unlike the JAX kernel, K1 takes any batch size, so the batch is not
 padded to a block multiple, and without ``project_out`` (heads == 1 and

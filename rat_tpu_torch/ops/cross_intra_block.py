@@ -5,11 +5,16 @@ Port of rat_tpu/ops/pallas/cross_intra_block.py. ``cross_intra_block``
 is differentiable (``CrossIntraBlock``, a ``torch.autograd.Function``,
 the counterpart of the JAX ``custom_vjp``): its forward launches the
 CUDA kernel (csrc/cross_intra_block.cu) on CUDA tensors and runs
-``cross_intra_block_reference`` on CPU tensors, with no other fallback;
-its backward is autograd of the plain version, recomputed from the
-saved inputs, exactly as the JAX ``_fused_bwd`` takes ``jax.vjp`` of
-the plain math. The TPU package has no backward kernel, so neither
-does the port.
+``cross_intra_block_reference`` on CPU tensors, with no other fallback.
+Its backward, on CUDA tensors, launches K1's backward kernel
+(``k1_grad_kernel`` and ``k1_grad_sum_kernel`` in the same source): it
+recomputes the block per sample from the saved inputs and writes dx and
+the 14 weight gradients, deterministically. The JAX package has no
+backward kernel (its ``_fused_bwd`` takes ``jax.vjp`` of the plain
+math); this one was written for the H100. Where a shape does not take
+the kernel (its widths, staged weights or per-warp area do not fit, as
+at KKBox's d = 40), and on CPU tensors, the backward is autograd of the
+plain version recomputed from the saved inputs, as JAX's is.
 
 ``x`` is [B, t, s, d] float32 as in the JAX package. ``params`` holds
 the 14 weights of ``PARAM_ORDER`` in ``nn.Linear`` layout ([out, in]):
@@ -37,6 +42,15 @@ launches = 0
 #: launches recorded into CUDA graphs while they were captured; a capture
 #: runs nothing, so these are not in ``launches``
 captured = 0
+#: backward calls on CUDA tensors that ran the backward kernel, counted as
+#: ``launches`` is (step_graph adds a graph's recorded ones per replay)
+grad_launches = 0
+#: backward calls recorded into CUDA graphs by the backward kernel
+grad_captured = 0
+#: backward calls on CUDA tensors that took autograd of the plain block
+#: because the kernel does not take their shape (eager, captured, and per
+#: replay of a graph that holds them)
+grad_plain = 0
 
 
 def attention(x, w_qkv, w_out, b_out, heads, dim_head, project_out):
@@ -144,6 +158,58 @@ def _forward(x, params, heads, dim_head, project_out):
     return out
 
 
+_grad_fns = None
+
+
+def _grad_library():
+    """(k1_grad_grid, k1_grad_launch) of the kernels' library, their
+    argument types set once: the backward runs per block and step."""
+    global _grad_fns
+    if _grad_fns is None:
+        lib = _build.load("cross_intra_block")
+        grid, launch = lib.k1_grad_grid, lib.k1_grad_launch
+        grid.argtypes = [ctypes.c_int] * 8
+        launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 \
+            + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        grid.restype = launch.restype = ctypes.c_int
+        _grad_fns = grid, launch
+    return _grad_fns
+
+
+def _backward(x, weights, grad_out, heads, dim_head, project_out):
+    """K1's backward kernel on CUDA tensors: (dx, [the gradient of each
+    weight, None where the weight is None]), or None where the kernel
+    does not take the shape. ``x`` and ``weights`` are the forward's
+    checked inputs."""
+    B, t, s, d = x.shape
+    hidden = weights[PARAM_ORDER.index("ff_w1")].shape[0]
+    grid_fn, launch = _grad_library()
+    grid = grid_fn(B, t, s, d, heads, dim_head, hidden, int(project_out))
+    if grid < 0:
+        _build.check(-grid, "cross_intra_block backward's grid")
+    if grid == 0:
+        return None
+    if grad_out.dtype != torch.float32 or grad_out.shape != x.shape:
+        raise ValueError("cross_intra_block: grad_out must be float32 of shape {}, got "
+                         "{} {}".format(tuple(x.shape), grad_out.dtype,
+                                        tuple(grad_out.shape)))
+    present = [w for w in weights if w is not None]
+    sizes = [w.numel() for w in present]
+    total = sum(sizes)
+    grad_out = grad_out.contiguous()
+    dx = torch.empty_like(x)
+    partials = torch.empty((grid, total), dtype=torch.float32, device=x.device)
+    flat = torch.empty(total, dtype=torch.float32, device=x.device)
+    ptrs = [None if w is None else w.data_ptr() for w in weights]
+    err = launch(x.data_ptr(), grad_out.data_ptr(), dx.data_ptr(), partials.data_ptr(),
+                 flat.data_ptr(), B, t, s, d, heads, dim_head, hidden, int(project_out),
+                 (ctypes.c_void_p * 14)(*ptrs), total, grid,
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "cross_intra_block backward kernel")
+    grads = iter(g.view_as(w) for g, w in zip(flat.split(sizes), present))
+    return dx, [None if w is None else next(grads) for w in weights]
+
+
 class CrossIntraBlock(torch.autograd.Function):
     """K1 under autograd. The 14 weights come in as separate inputs in
     ``PARAM_ORDER``, so that autograd reaches the module's parameters;
@@ -159,7 +225,17 @@ class CrossIntraBlock(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
+        global grad_launches, grad_captured, grad_plain
         x, *weights = ctx.saved_tensors
+        if x.device.type == "cuda":
+            got = _backward(x, weights, grad_out, *ctx.block)
+            if got is not None:
+                if torch.cuda.is_current_stream_capturing():
+                    grad_captured += 1
+                else:
+                    grad_launches += 1
+                return (got[0], None, None, None, *got[1])
+            grad_plain += 1
         with torch.enable_grad():
             inputs = [None if t is None else t.detach().requires_grad_()
                       for t in [x] + weights]
@@ -173,7 +249,8 @@ class CrossIntraBlock(torch.autograd.Function):
 
 def cross_intra_block(x, params, heads, dim_head, project_out=True):
     """One block, differentiable in ``x`` and every weight of
-    ``params``: the kernel on CUDA tensors, the plain version on CPU
-    tensors, autograd of the plain version backward."""
+    ``params``: the kernels on CUDA tensors (the backward's where it
+    takes the shape, else autograd of the plain version), the plain
+    version and its autograd on CPU tensors."""
     return CrossIntraBlock.apply(x, heads, dim_head, project_out,
                                  *(params.get(name) for name in PARAM_ORDER))

@@ -10,8 +10,8 @@ activity a profile records share one timeline.
 - ``count(name, n=1)`` adds to a counter that lives as long as the
   process; ``counters()`` returns them, with the kernels' own launch
   counters under their modules' names (``cross_intra_block.launches``,
-  ``cross_intra_block.captured``, ``bm25_topk.launches``), which count
-  whether or not anything records.
+  ``.captured``, ``.grad_launches``, ``.grad_captured``, ``.grad_plain``,
+  ``bm25_topk.launches``), which count whether or not anything records.
 - Recording is off by default. It is on while a torch.profiler session
   runs (``torch.autograd.profiler._is_profiler_enabled``), and between
   :func:`enable` and :func:`disable`. Off, a span or count site costs a
@@ -149,6 +149,9 @@ class Recorder(object):
         out = dict(self._counts)
         out.update({"cross_intra_block.launches": cross_intra_block.launches,
                     "cross_intra_block.captured": cross_intra_block.captured,
+                    "cross_intra_block.grad_launches": cross_intra_block.grad_launches,
+                    "cross_intra_block.grad_captured": cross_intra_block.grad_captured,
+                    "cross_intra_block.grad_plain": cross_intra_block.grad_plain,
                     "bm25_topk.launches": bm25_topk.launches})
         return out
 
