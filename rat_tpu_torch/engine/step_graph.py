@@ -63,6 +63,10 @@ of kernel launches, and never waits for the card inside a group.
 - **Dropout.** The Trainer's dropout generator is registered with a
   train graph (``CUDAGraph.register_generator_state``), so each replay
   draws the masks the eager step would have drawn.
+- **Path counters.** Each train replay counts one step of the path
+  the graph was captured on (``model.path.fused`` or
+  ``model.path.module``), as an eager step counts its own
+  (``Trainer.train_step``).
 - **K1's launches.** A capture records K1's launches (counted in
   ``cross_intra_block.captured``, not ``launches``); each replay adds
   the graph's count to ``cross_intra_block.launches``, which so stays
@@ -116,6 +120,8 @@ class StepGraph(object):
         # a replay's span and counter names (rat_tpu_torch.tracing), made
         # once: a replay runs per batch
         self._replay_span, self._replays = "graph.replay." + kind, "graph.replays." + kind
+        #: a train replay is one step of the path it was captured on
+        self._path = trainer.step_path() if kind == "train" else None
 
     def _step(self, captured):
         """The outputs of one step; in training the whole step when run
@@ -182,6 +188,8 @@ class StepGraph(object):
                     o[i].copy_(r)
             self.replays += 1
             tracing.count(self._replays)
+            if self._path is not None:
+                tracing.count(self._path)
             k1.launches += self.k1_per_replay
             k1.grad_launches += self.k1_grad_per_replay
             k1.grad_plain += self.k1_plain_per_replay

@@ -2,8 +2,10 @@
 device). Control flow as in the JAX package and the reference
 (fuxictr base_model.py:74-230):
 
-- loss = BCE (log terms clamped at -100) over the batch, plus the
-  p-norm regularizers split embedding-vs-net by parameter name;
+- loss = BCE (torch's ``F.binary_cross_entropy``: log terms clamped at
+  -100, a finite gradient at a prediction of 0 or 1) over the batch,
+  plus the p-norm regularizers split embedding-vs-net by parameter
+  name;
 - per step: loss -> backward -> global-norm clip at 10 -> Adam
   (engine/optim.py);
 - eval cadence ``every_x_epochs`` (a float is fine) via
@@ -100,6 +102,7 @@ from collections import deque
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 from .. import tracing
 from ..data.block_loader import DataBlockGenerator
@@ -116,10 +119,18 @@ from .step_graph import StepGraph
 
 
 def _bce(pred, target):
-    """torch F.binary_cross_entropy parity: log terms clamped at -100."""
-    logp = torch.clamp(torch.log(pred), min=-100.0)
-    log1mp = torch.clamp(torch.log(1.0 - pred), min=-100.0)
-    return -(target * logp + (1.0 - target) * log1mp)
+    """Elementwise binary cross-entropy: torch's
+    ``F.binary_cross_entropy`` (the published trainer's loss), value and
+    gradient. Each log term is clamped at -100, and the gradient's
+    denominator p (1 - p) is bounded below by 1e-12, so that a float32
+    prediction of exactly 0 or 1 gives a finite loss and gradient (at p
+    = 1: 0 for target 1, 1e12 for target 0, which the sigmoid's p (1 - p)
+    takes to 0). The JAX package clamps the logs alone
+    (rat_tpu/engine/trainer.py:50-54), and its gradient there is 0 x inf
+    = NaN, which turns the weights NaN at the next step; and it takes
+    log(1 - p) where torch takes log1p(-p). So the two differ only where
+    p or 1 - p rounds away in float32: a saturated row."""
+    return F.binary_cross_entropy(pred, target, reduction="none")
 
 
 def get_loss_fn(loss):
@@ -391,6 +402,12 @@ class Trainer(object):
                     data["nbr_ok"] = up(gen.neighbor_valid_mask(), np.float32)
             return data
 
+    def step_path(self):
+        """The counter of the path a train step takes now:
+        ``model.path.fused`` (kernel K1, through the gate of
+        :meth:`_use_fast_forward`) or ``model.path.module``."""
+        return "model.path.fused" if self._use_fast_forward() else "model.path.module"
+
     def _forward(self, data, idx):
         """Gather one batch and run the fused or the module forward."""
         X, y, Xf, nmask = _gather_batch(data, idx, self._dedup)
@@ -463,6 +480,7 @@ class Trainer(object):
     def train_step(self, data, idx, valid):
         """One step: loss, gradients, clip, Adam. Returns the loss."""
         tracing.count("train.eager_steps")
+        tracing.count(self.step_path())
         with tracing.span("train.step"):
             loss = self.loss_and_grads(data, idx, valid)
             self.optimizer.step()

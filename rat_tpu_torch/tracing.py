@@ -37,7 +37,10 @@ The names the program records (the benchmark's readers and the
   ``train.device_split`` (``bytes``), ``train.group``, ``train.step``,
   ``graph.capture.<kind>``, ``graph.replay.<kind>``, ``train.optim``,
   ``train.checkpoint``; counters ``graph.captures.<kind>``,
-  ``graph.replays.<kind>``, ``train.eager_steps``;
+  ``graph.replays.<kind>``, ``train.eager_steps``, and
+  ``model.path.fused`` / ``model.path.module``: one count per train
+  step, eager or replayed, by the path its forward took (K1's fused
+  path, or the module encoder);
 - evaluation: ``eval``, ``eval.dispatch``, ``eval.drain``,
   ``eval.metrics``.
 """
