@@ -29,6 +29,16 @@ Phases, any failure exits non-zero:
              heads=1/dim_head=d (d=10 and d=40) shapes, rtol 2e-3 /
              atol 1e-4;
              forward+backward timed for both.
+3b. emb grad — the embedding lookups' backward (ops.embedding_grad) at
+             the train cells' shapes (a batch of 4096 x 6 samples drawn
+             as the ML-Tag and KKBox phases draw their rows: the packed
+             table, the label table, the wide tower's d = 1 table): the
+             kernel against index_put_ and PyTorch's
+             embedding_dense_backward (F.embedding's backward) exactly
+             (quarter-integer gradients sum exactly), each timed on the
+             device (all its kernels per call, torch.profiler) and with
+             CUDA events, index_put_ and embedding_dense_backward beside
+             it, and the bytes' bound.
 4. serve   — RAT_m2 at the full width of the ML-Tag config
              (configs/RAT_m2/movielenslatest_x1, plus use_pallas) on
              ML-Tag-shaped data made from the seed: a ~1.4M-row pool,
@@ -250,10 +260,12 @@ from rat_tpu_torch.engine.optim import get_learning_rate
 from rat_tpu_torch.engine.trainer import _gather_batch
 from rat_tpu_torch.features import FeatureEncoder, FeatureMap, preprocess
 from rat_tpu_torch.models import build_model
+from rat_tpu_torch.nn.embedding import EmbeddingSpec
 from rat_tpu_torch.ops import _build
 from rat_tpu_torch.ops import bm25_score_chunk as k3
 from rat_tpu_torch.ops import bm25_topk as k2
 from rat_tpu_torch.ops import cross_intra_block as k1
+from rat_tpu_torch.ops import embedding_grad as emb_grad
 from rat_tpu_torch.parallel import initialize_distributed, make_mesh, process_local_rows
 from rat_tpu_torch.parallel.distributed import free_port
 from rat_tpu_torch.parallel.dryrun import local_leaves, one_step
@@ -311,6 +323,10 @@ KKBOX_PARAMS = dict(MLTAG_PARAMS, **{
     "dataset_id": "kkbox_x1_10fold_retrieval",
     "embedding_dim": 40, "num_heads": 8, "dim_head": 10, "depth": 4, "scale_dim": 2,
     "batch_norm": True, "emb_dropout": 0.1, "embedding_regularizer": 0.0005})
+# the lookups whose tables take a gradient in one train step of either
+# config (the packed table, the wide tower's, the label table): each
+# runs the embedding backward's kernel once on a card
+EMB_GRAD_PER_STEP = 3
 # the dataset's fields in column order (configs/RAT_m2/kkbox_x1/
 # dataset_config.yaml): vocabulary sizes chosen so the packed table holds
 # ~92K rows, which at d=40 gives the real set's parameter count
@@ -843,6 +859,75 @@ def check_k1_grad(rng, device):
             "grad_kernel_ms": _kernel_ms(lambda: timed(k1.cross_intra_block), 20, "k1_grad")}
 
 
+def _emb_grad_cases(seed, batch=4096, samples=6):
+    """(cell, table, ids [batch, samples, ...], rows, d) of the lookups
+    in one train step of each train cell, from rows drawn as the ML-Tag
+    and KKBox phases draw theirs."""
+    n = batch * samples
+    cases = []
+    for cell, (x, _), fm, d in (
+            ("mltag", mltag_arrays(seed, n, 0), mltag_feature_map(), 10),
+            ("kkbox", kkbox_arrays(seed, n, 0), kkbox_feature_map(), 40)):
+        X = torch.from_numpy(x[:, :-1].astype(np.int64)).view(batch, samples, -1)
+        labels = torch.from_numpy(x[:, -1].astype(np.int64)).view(batch, samples)
+        labels[:, 0] = 2
+        spec = EmbeddingSpec.build(fm, d)
+        wide = EmbeddingSpec.build(fm, 1, use_pretrain=False, force_dim=1)
+        for name, s, ids, width in (("packed", spec, X, d), ("wide", wide, X[:, :1], 1)):
+            rows = ids[..., torch.from_numpy(s.token_cols)] + torch.from_numpy(s.token_offsets)
+            cases.append((cell, name, rows, s.total_rows, width))
+        cases.append((cell, "label", labels, 3, d))
+    return cases
+
+
+def check_emb_grad(seed, device, reps=20):
+    """The embedding lookups' backward at the train cells' shapes: the
+    kernel's table gradient equal to index_put_'s and to PyTorch's
+    embedding_dense_backward's (quarter-integer gradients, so every sum
+    is exact), then all three timed. Returns the ``kernels`` entry
+    {name, shapes: {cell.table: {n, rows, d, longest_run, ms, call_ms,
+    plain_ms, library_ms, library_call_ms, bound_ms}}}."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    for cell, name, rows, num_rows, d in _emb_grad_cases(seed):
+        rows = rows.to(device)
+        grad = torch.from_numpy((rng.randint(-8, 8, tuple(rows.shape) + (d,)) / 4)
+                                .astype(np.float32)).to(device)
+        before = emb_grad.launches
+        got = emb_grad.table_grad(grad, rows, num_rows)
+        want = emb_grad.table_grad_reference(grad, rows, num_rows)
+
+        def library():
+            return torch.ops.aten.embedding_dense_backward(grad, rows, num_rows, -1, False)
+
+        lib = library()
+        torch.cuda.synchronize()
+        if emb_grad.launches != before + 1 or not torch.equal(got, want) \
+                or not torch.equal(lib, want):
+            raise AssertionError("emb grad {}.{}: the kernel's, index_put_'s and "
+                                 "embedding_dense_backward's gradients differ"
+                                 .format(cell, name))
+        n = rows.numel()
+        res = {"n": n, "rows": num_rows, "d": d,
+               "longest_run": int(torch.bincount(rows.reshape(-1)).max()),
+               # every kernel and copy of a call: its sort's too
+               "ms": _kernel_ms(lambda: emb_grad.table_grad(grad, rows, num_rows), reps, ""),
+               "call_ms": _cuda_ms(lambda: emb_grad.table_grad(grad, rows, num_rows), reps),
+               "plain_ms": _cuda_ms(
+                   lambda: emb_grad.table_grad_reference(grad, rows, num_rows), reps),
+               "library_ms": _kernel_ms(library, reps, ""),
+               "library_call_ms": _cuda_ms(library, reps),
+               "bound_ms": _bound(0, 4 * d * (n + num_rows))[0]}
+        out[cell + "." + name] = res
+        print("emb grad {:6s} {:6s} n={:7d} rows={:6d} d={:2d} longest run {:6d}: equal to "
+              "index_put_ and embedding_dense_backward; {ms:.4f} ms on the device "
+              "({call_ms:.4f} ms a call), index_put_ {plain_ms:.4f} ms, "
+              "embedding_dense_backward {library_ms:.4f} ms on the device "
+              "({library_call_ms:.4f} ms a call), bound {bound_ms:.4f} ms (bytes)".format(
+                  cell, name, n, num_rows, d, res["longest_run"], **res))
+    return {"name": "embedding_grad", "shapes": out}
+
+
 def _grads(trainer, data, idx, valid):
     """Loss and {name: gradient} of one train step, without an optimizer
     step."""
@@ -964,13 +1049,13 @@ def train(device, seed, pool, test, batch_size, model_root):
     trainer = Trainer(fm, params, device=device)
     one_step = one_step_check(trainer, trainer.device_split(train_gen), batch_size)
 
-    k1.launches = 0
+    k1.launches = emb_grad.launches = 0
     sync()
     t3 = time.perf_counter()
     trainer.fit(train_gen, valid_gen, epochs=1)
     sync()
     t4 = time.perf_counter()
-    k1_launches = k1.launches
+    k1_launches, emb_launches = k1.launches, emb_grad.launches
 
     losses = np.asarray(trainer.step_losses)
     if len(losses) != len(train_gen) or not np.all(np.isfinite(losses)):
@@ -992,9 +1077,11 @@ def train(device, seed, pool, test, batch_size, model_root):
     depth = trainer.model.depth
     expected = {"cross_intra_block": depth * (len(train_gen) + len(valid_gen)),
                 "bm25_topk": _fold_k2_batches(len(pool), retrieval)
-                + _k2_batches(len(test), retrieval)} if cuda \
-        else {"cross_intra_block": 0, "bm25_topk": 0}
-    launches = {"cross_intra_block": k1_launches, "bm25_topk": k2_launches}
+                + _k2_batches(len(test), retrieval),
+                "embedding_grad": EMB_GRAD_PER_STEP * len(train_gen)} if cuda \
+        else {"cross_intra_block": 0, "bm25_topk": 0, "embedding_grad": 0}
+    launches = {"cross_intra_block": k1_launches, "bm25_topk": k2_launches,
+                "embedding_grad": emb_launches}
     if launches != expected:
         raise AssertionError("train: launches {} against the expected {}".format(
             launches, expected))
@@ -1183,13 +1270,13 @@ def kkbox_train(device, seed, train, valid, batch_size, model_root, vocab=None):
         raise AssertionError("kkbox_train: the gate let a BatchNorm and dropout model "
                              "onto the fused path")
     bn_before = _bn_buffers(trainer.model)
-    k1.launches = 0
+    k1.launches = emb_grad.launches = 0
     sync()
     t3 = time.perf_counter()
     trainer.fit(train_gen, valid_gen, epochs=1)
     sync()
     t4 = time.perf_counter()
-    k1_launches = k1.launches
+    k1_launches, emb_launches = k1.launches, emb_grad.launches
 
     losses = np.asarray(trainer.step_losses)
     if len(losses) != len(train_gen) or not np.all(np.isfinite(losses)):
@@ -1222,8 +1309,10 @@ def kkbox_train(device, seed, train, valid, batch_size, model_root, vocab=None):
 
     expected = {"cross_intra_block": 0,
                 "bm25_topk": _fold_k2_batches(len(train), retrieval)
-                + _k2_batches(len(valid), retrieval) if cuda else 0}
-    launches = {"cross_intra_block": k1_launches, "bm25_topk": k2_launches}
+                + _k2_batches(len(valid), retrieval) if cuda else 0,
+                "embedding_grad": EMB_GRAD_PER_STEP * len(train_gen) if cuda else 0}
+    launches = {"cross_intra_block": k1_launches, "bm25_topk": k2_launches,
+                "embedding_grad": emb_launches}
     if launches != expected:
         raise AssertionError("kkbox_train: launches {} against the expected {}".format(
             launches, expected))
@@ -3503,7 +3592,19 @@ def main(argv=None):
     kernels = [check_k1(rng, device), check_k2(rng, device, pool, test),
                check_k3(rng, device, pool, test)]
     kernels[0].update(check_k1_grad(rng, device))
+    kernels.append(check_emb_grad(args.seed, device))
     k3_checks = k3.launches      # K3 is on no path: none may follow
+    # the embedding backward's launches by path, taken after each path in
+    # this process (subprocesses' calls not counted); train and
+    # kkbox_train count and assert their own
+    emb_by_path = {}
+
+    def emb_count(path):
+        if path is not None:
+            emb_by_path[path] = emb_grad.launches
+        emb_grad.launches = 0
+
+    emb_count(None)
 
     batch_size = MLTAG_PARAMS["batch_size"]
     res = serve(device, args.seed, pool, test, batch_size)
@@ -3517,6 +3618,7 @@ def main(argv=None):
                              "batches = {}".format(serve_launches["cross_intra_block"],
                                                    res["depth"] * res["batches"]))
     profile_serve(device, args.seed, pool, test, batch_size)
+    emb_count("serve")
 
     with tempfile.TemporaryDirectory() as model_root:
         trainer, train_gen, res = train(device, args.seed, pool, test, batch_size,
@@ -3541,6 +3643,7 @@ def main(argv=None):
                                label="kkbox_train")
         steady["step_split_device_ms"] = step_split(kk_trainer, kk_gen, args.seed)
         print("kkbox_train steady state: " + json.dumps(steady))
+        emb_count(None)          # the profiled steps after train and kkbox_train
         t0 = time.perf_counter()
         res, grouped_launches = grouped(trainer, train_gen, trainer.valid_gen, kk_trainer,
                                         kk_gen, args.seed)
@@ -3551,6 +3654,7 @@ def main(argv=None):
               "evaluations): "
               + json.dumps(grouped_launches))
         print("grouped phase: {:.1f} s".format(time.perf_counter() - t0))
+        emb_count("grouped")
         del kk_trainer, kk_gen, kk_train, kk_valid
         torch.cuda.empty_cache()
 
@@ -3558,6 +3662,7 @@ def main(argv=None):
                        model_root)
         variant_launches = {k: sum(r["launches"][k] for r in res.values())
                             for k in ("cross_intra_block", "bm25_topk")}
+        emb_count("variants")
 
         t0 = time.perf_counter()
         res, scan_launches = mesh_scan(device, pool, test)
@@ -3576,6 +3681,7 @@ def main(argv=None):
               + json.dumps(train_launches_m))
         print("mesh phase: {:.1f} s".format(time.perf_counter() - t0))
         mesh_launches = {k: scan_launches[k] + train_launches_m[k] for k in scan_launches}
+        emb_count("mesh")
     del trainer, train_gen
     torch.cuda.empty_cache()
     if k3.launches != k3_checks:
@@ -3590,14 +3696,17 @@ def main(argv=None):
                 print("native {} build seconds: {}".format(
                     name, json.dumps(res[name + "_build_s"])))
         print("native phase: {:.1f} s".format(time.perf_counter() - t0))
+        emb_count(None)
         res = cli(device, args.seed, work_dir)
         cli_launches = res.pop("launches")
+        emb_count("cli")
         print("cli: " + json.dumps(res))
         print("cli launches (asserted: K1 = depth x (epochs x (train steps + valid "
               "batches) + valid batches + test batches), K2 = query batches of the 10 "
               "folds + the valid and test splits, K3 = 0; the rerun K2 = 0): "
               + json.dumps(cli_launches))
         res, block_launches = blocks(device, args.seed, work_dir)
+        emb_count("blocks")
         print("blocks: " + json.dumps(res))
         print("blocks launches (asserted from the block sizes: K1 = depth x (train steps "
               "+ 2 x valid batches + test batches) in each command; K2 (a) = query "
@@ -3615,7 +3724,9 @@ def main(argv=None):
     uniform_pool, uniform_test = mltag_arrays(args.seed + 1, MLTAG_POOL_ROWS,
                                               MLTAG_TEST_ROWS, zipf_a=0.0)
     k1.launches = k2.launches = k3.launches = 0
+    emb_count(None)
     exact_match(device, args.seed, pool, test, uniform_pool, uniform_test)
+    emb_count("exact_match")
     exm_launches = {"cross_intra_block": k1.launches, "bm25_topk": k2.launches,
                     "bm25_score_chunk": k3.launches}
     if any(exm_launches.values()):
@@ -3628,6 +3739,7 @@ def main(argv=None):
           "eval 100 steps; retrieval "
           "200,000 pool rows x 100,000 queries".format(json.dumps(BENCH_STEPS)))
     _, bench_launches, _ = bench(device)
+    emb_count("bench")
     print("bench launches (asserted per bench: K1 = depth x (warm-up + 3 x window) on "
           "the fused ML-Tag path, else 0; K2 = 2 calls x query batches of 2048 in "
           "the retrieval bench, else 0): " + json.dumps(bench_launches))
@@ -3636,6 +3748,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as work_dir:
         res, autotune_launches = autotune(device, args.seed, work_dir)
+    emb_count("autotune")
     print("autotune: " + json.dumps(res))
     print("autotune launches (the card run's log; asserted K1 > 0): "
           + json.dumps(autotune_launches))
@@ -3644,6 +3757,7 @@ def main(argv=None):
     k1.launches = k2.launches = k3.launches = 0
     with tempfile.TemporaryDirectory() as work_dir:
         res = precision(device, work_dir)
+    emb_count("precision")
     precision_launches = {"cross_intra_block": k1.launches, "bm25_topk": k2.launches,
                           "bm25_score_chunk": k3.launches}
     if precision_launches != res.pop("launches"):
@@ -3664,7 +3778,9 @@ def main(argv=None):
     print("precision phase: {:.1f} s".format(time.perf_counter() - t0))
     t0 = time.perf_counter()
     k1.launches = k2.launches = k3.launches = 0
+    emb_count(None)
     res = nnlib(device, args.seed)
+    emb_count("nnlib")
     nnlib_launches = {"cross_intra_block": k1.launches, "bm25_topk": k2.launches,
                       "bm25_score_chunk": k3.launches}
     if any(nnlib_launches.values()):
@@ -3676,6 +3792,7 @@ def main(argv=None):
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as work_dir:
         res = scripts(device, work_dir, sizes=SCRIPT_SIZES)
+    emb_count("scripts")
     scripts_launches = res.pop("launches")
     kernels[1].update({k + "_tmall_f5": v for k, v in res.pop("k2_tmall").items()})
     print("scripts: " + json.dumps(res))
@@ -3692,12 +3809,18 @@ def main(argv=None):
                "exact_match": exm_launches, "mesh": mesh_launches,
                "bench": bench_launches, "autotune": autotune_launches,
                "precision": precision_launches, "scripts": scripts_launches}
-    for entry in kernels:
+    for entry in kernels[:3]:
         counts = {path: launches.get(entry["name"], 0)
                   for path, launches in by_path.items()}
         if entry["name"] in serve_launches:
             entry["launches"] = sum(counts.values())
         entry["launches_by_path"] = counts
+    emb_by_path.update(train=train_launches["embedding_grad"],
+                       kkbox_train=kkbox_launches["embedding_grad"])
+    kernels[3]["launches_by_path"] = emb_by_path
+    print("embedding_grad launches by path (this process's calls; asserted {} a train "
+          "step in train and kkbox_train): {}".format(EMB_GRAD_PER_STEP,
+                                                      json.dumps(emb_by_path)))
     print(smi.splitlines()[0])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

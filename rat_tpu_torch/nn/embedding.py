@@ -25,6 +25,11 @@ pooled. Semantics, as in the JAX package:
 Every parameter lives under the module, so its name holds
 "embedding_layer", the key of the embedding regularizer.
 
+Each lookup of a table that takes a gradient (the packed table, the side
+tables, the label table) is ``ops.embedding_grad.lookup``: ``table[rows]``,
+whose backward on the card is a hand-written kernel that sums each
+repeated id's rows in segments instead of one after another.
+
 Under a mesh the packed table is row-sharded over the model axis
 (:meth:`PackedEmbedding.shard_rows`): each rank keeps a contiguous range
 of rows, and :class:`RowShardedLookup` gathers the ids in that range,
@@ -42,6 +47,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.embedding_grad import lookup, table_grad
 from .initializers import embedding_init, xavier_normal
 
 
@@ -218,20 +224,16 @@ class RowShardedLookup(torch.autograd.Function):
             out = table.new_zeros(rows.shape + table.shape[1:])
         dist.all_reduce(out, group=group)
         ctx.save_for_backward(local, hit)
-        ctx.table_shape = table.shape
+        ctx.num_rows = table.shape[0]
         return out
 
     @staticmethod
     def backward(ctx, grad):
         local, hit = ctx.saved_tensors
-        width = ctx.table_shape[1]
-        grad = (grad * hit[..., None].to(grad.dtype)).reshape(-1, width)
-        # accumulate as autograd does for ``table[rows]``, so that a
-        # one-rank mesh gives the unsharded gradient bit for bit
-        out = grad.new_zeros(ctx.table_shape)
-        if ctx.table_shape[0]:
-            out.index_put_((local.reshape(-1),), grad, accumulate=True)
-        return out, None, None, None
+        grad = grad * hit[..., None].to(grad.dtype)
+        # the unsharded lookup's backward, so that a one-rank mesh gives
+        # the unsharded gradient bit for bit
+        return table_grad(grad, local, ctx.num_rows), None, None, None
 
 
 class PackedEmbedding(nn.Module):
@@ -271,7 +273,7 @@ class PackedEmbedding(nn.Module):
         ids_local = X[..., self.token_cols]                             # [..., T]
         rows = ids_local + self.token_offsets
         if self.row_shard is None:
-            emb = self.table[rows]                                      # [..., T, d]
+            emb = lookup(self.table, rows)                              # [..., T, d]
         else:
             emb = RowShardedLookup.apply(self.table, rows, *self.row_shard)
         pad = self.token_padding
@@ -287,7 +289,7 @@ class PackedEmbedding(nn.Module):
             if f.hook:
                 ids = X[..., f.x_cols[0]] if f.kind == "side_token" \
                     else X[..., list(f.x_cols)]
-                vecs = getattr(self, "side_" + f.name)[ids]
+                vecs = lookup(getattr(self, "side_" + f.name), ids)
                 keep = ids != f.padding_idx
                 if f.padding_idx >= 0:
                     vecs = vecs * keep[..., None].to(vecs.dtype)
@@ -316,7 +318,7 @@ class LabelEmbedding(nn.Module):
                                               generator=generator))
 
     def forward(self, labels):
-        return self.table[labels]
+        return lookup(self.table, labels)
 
 
 class MergedEmbeddingLayer(nn.Module):

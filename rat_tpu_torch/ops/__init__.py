@@ -5,7 +5,11 @@ beside its plain PyTorch version:
   ``torch.autograd.Function`` whose backward is autograd of the plain
   version;
 - K2 ``bm25_topk``: fused BM25 score + top-K over the pool;
-- K3 ``bm25_score_chunk``: dense BM25 scores against one pool chunk.
+- K3 ``bm25_score_chunk``: dense BM25 scores against one pool chunk;
+- ``embedding_grad``: the embedding lookups' backward (``lookup``, the
+  gather under a ``torch.autograd.Function`` whose backward,
+  ``table_grad``, is the kernel on the card; plain version
+  ``table_grad_reference``).
 
 Each module holds the wrapper of the same name, its plain version
 (``*_reference``) and the wrapper's ``launches`` count. The package
@@ -13,4 +17,4 @@ exports the modules, not the wrappers, so that a wrapper's name does not
 hide the module that holds its count.
 """
 
-from . import bm25_score_chunk, bm25_topk, cross_intra_block  # noqa: F401
+from . import bm25_score_chunk, bm25_topk, cross_intra_block, embedding_grad  # noqa: F401

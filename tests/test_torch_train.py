@@ -259,7 +259,7 @@ def test_chip_smoke_train_phase_on_cpu(tmp_path):
     before = (k1.launches, k2.launches)
     trainer, gen, res = chip_smoke.train("cpu", 0, pool, test, 64, str(tmp_path))
     assert (k1.launches, k2.launches) == before
-    assert res["launches"] == {"cross_intra_block": 0, "bm25_topk": 0}
+    assert res["launches"] == {"cross_intra_block": 0, "bm25_topk": 0, "embedding_grad": 0}
     assert res["steps"] == len(gen) == 47 and res["valid_batches"] == 5
     assert res["one_step"]["loss_abs_err"] <= 1e-6
     assert res["one_step"]["grad_max_abs_err"] <= 1e-6
