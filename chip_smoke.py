@@ -1023,7 +1023,9 @@ def train(device, seed, pool, test, batch_size, model_root):
     retrieved against it, a one-step check, Trainer.fit for one epoch,
     then the best checkpoint reloaded and evaluated. Launch counts are
     zeroed just before and read just after the generators (K2) and the
-    fit (K1). Returns (trainer, train generator, dict of results)."""
+    fit (K1). On a card the fit's one step graph replays every train
+    batch but its first, the tail before the evaluation included.
+    Returns (trainer, train generator, dict of results)."""
     cuda = torch.device(device).type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     fm = mltag_feature_map()
@@ -1056,6 +1058,10 @@ def train(device, seed, pool, test, batch_size, model_root):
     sync()
     t4 = time.perf_counter()
     k1_launches, emb_launches = k1.launches, emb_grad.launches
+    replays = _replays(trainer)
+    if replays != (len(train_gen) - 1 if cuda else 0):
+        raise AssertionError("train: the step graph replayed {} of {} batches".format(
+            replays, len(train_gen)))
 
     losses = np.asarray(trainer.step_losses)
     if len(losses) != len(train_gen) or not np.all(np.isfinite(losses)):
@@ -1087,7 +1093,7 @@ def train(device, seed, pool, test, batch_size, model_root):
             launches, expected))
     return trainer, train_gen, dict(
         {"train_rows": len(pool), "valid_rows": len(test), "steps": len(losses),
-         "valid_batches": len(valid_gen), "depth": depth,
+         "valid_batches": len(valid_gen), "depth": depth, "replays": replays,
          "fold_retrieval_ms": (t1 - t0) * 1e3, "valid_retrieval_ms": (t2 - t1) * 1e3,
          "epoch_s": t4 - t3,
          "epoch_examples_per_s": len(pool) / (t4 - t3),
@@ -1413,7 +1419,7 @@ def _host_batches(gen, seed, n):
 def _run_steps(trainer, batches, group, decay_at=None):
     """Train on ``batches`` (host row ids, valid) from the trainer's state
     over its train split: per step (``group`` 0: each batch's ids
-    uploaded with a blocking copy, as the per-step loop does) or in
+    uploaded with a blocking copy, then one Trainer.train_step) or in
     groups through Trainer.train_scan (one pinned upload per group);
     the LR plateau's decay (Trainer.lr_decay) after ``decay_at`` batches.
     Returns (host losses, host ms per step, ending in a synchronize)."""
@@ -1508,8 +1514,8 @@ def _window(trainer, batches, group, profiled):
 def _eval_per_batch(trainer, gen, data):
     """Scores of ``gen`` one batch per dispatch, each batch's ids uploaded
     with a blocking copy and each batch's scores kept on the device until
-    the end (the per-step loop's eval; under a mesh, of one rank, this
-    rank's rows); host float32."""
+    the end (an eval of one batch a dispatch; under a mesh, of one rank,
+    this rank's rows); host float32."""
     model, dev = trainer.model, trainer.device
     model.eval()
     preds = []

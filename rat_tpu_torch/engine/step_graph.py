@@ -2,11 +2,13 @@
 counterpart of the JAX package's scanned dispatch (``train_scan`` and
 ``eval_scan``, rat_tpu/engine/trainer.py:528-571).
 
-JAX folds a group of G steps into one ``lax.scan`` program. Here one
-graph holds ONE step at the batch size, and the Trainer's grouped loops
-replay it once per batch of a group: the host enqueues a replay and a
-few copies per batch instead of the forward's and backward's hundreds
-of kernel launches, and never waits for the card inside a group.
+JAX folds a group of G steps into one ``lax.scan`` program, so a group
+of another length is another program. Here one graph holds ONE step at
+the batch size, and the Trainer's loops replay it once per batch of a
+group of any length, a short group before a boundary as a full one: the
+host enqueues a replay and a few copies per batch instead of the
+forward's and backward's hundreds of kernel launches, and never waits
+for the card inside a group.
 
 - **What a train graph holds.** The forward, the masked loss with the
   regularizer, and the backward (``Trainer.loss_and_grads``). The
@@ -77,8 +79,8 @@ of kernel launches, and never waits for the card inside a group.
   ``captured`` at the capture, then per replay ``launches``.
 - **Gradients.** The backward writes the gradients into the graph's
   memory pool; each replay hands those tensors back to the parameters'
-  ``.grad`` before the optimizer steps, since a per-step call in between
-  (a remainder batch) replaces them.
+  ``.grad`` before the optimizer steps, since an eager step in between
+  (another graph's warm-up, a caller's ``train_step``) replaces them.
 - **Lifetime.** A graph points at its device split, the parameters and
   buffers, and its own memory pool. It holds its split, and the Trainer
   drops it (Trainer._graph) when the split changes, when weights are

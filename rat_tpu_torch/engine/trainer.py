@@ -34,29 +34,32 @@ dict, buffers included. Batch order comes from the Trainer's own
 same batches. Step losses and predictions stay on the device until the
 epoch or the split is done, then come back in one copy.
 
-Dispatch is grouped, as in the JAX package (trainer.py:689-966): the
-train loop buffers ``train_scan_batches`` batches (default 64; the
+Dispatch is grouped, as in the JAX package (trainer.py:689-966), in one
+train loop: it buffers ``train_scan_batches`` batches (default 64; the
 environment variable RAT_TPU_TRAIN_SCAN_BATCHES overrides the key, and
-1 or less runs the per-step loop) and dispatches them with one [G, B]
-index upload (pinned, non-blocking on a card); a group never spans an
-evaluation boundary or a change of device split, and the batches before
-such a boundary that do not fill a group take the per-step program.
-Evaluation groups 64 batches per dispatch and keeps at most 8 groups in
-flight before it fetches the oldest. On a card a full group replays a
-CUDA graph of the train step's forward and backward, the optimizer
-stepping eagerly after each replay, and an eval group one of the eval
-forward (engine/step_graph.py), K1 inside, under a mesh (its
-collectives captured) and with ``dedup_neighbors`` too, unless
-:meth:`Trainer._graph_gate` says why not (the CPU, a profiling epoch,
-dropout without ``register_generator_state``); those runs group their
-dispatch all the same and run each step eagerly. A profiling epoch runs
-per step. The full train state (``save_train_state``/``restore_train_state``, engine/checkpoint.py)
-resumes a run exactly. ``profile_dir`` writes a torch.profiler trace of
-steps 2 to 2 + ``profile_steps`` of the first epoch, and beside it the
-program's spans recorded meanwhile (rat_tpu_torch.tracing: the epoch,
-the dispatch, captures, replays, the optimizer's eager steps, the
-evaluation and the checkpoint each record one). ``dedup_neighbors``
-(or RAT_TPU_DEDUP_NEIGHBORS=1) gathers each batch's pool rows once per
+1 or less means groups of one batch) and dispatches each buffer as one
+:meth:`Trainer.train_scan` with one [G, B] index upload (pinned,
+non-blocking on a card). A group never spans an evaluation boundary or
+a change of device split, so the batches before such a boundary form a
+shorter group, dispatched as a full one is. Evaluation groups 64
+batches per dispatch and keeps at most 8 groups in flight before it
+fetches the oldest. On a card every train batch replays a CUDA graph of
+the train step's forward and backward (but a new graph's first, which
+runs eagerly), the optimizer stepping eagerly after each replay, and
+every eval batch one of the eval forward (engine/step_graph.py), K1
+inside, under a mesh (its collectives captured) and with
+``dedup_neighbors`` too, unless :meth:`Trainer._graph_gate` says why
+not (the CPU, a profiling epoch, dropout without
+``register_generator_state``); those runs group their dispatch all the
+same and run each step eagerly. A profiling epoch runs groups of one
+batch. The full train state (``save_train_state``/
+``restore_train_state``, engine/checkpoint.py) resumes a run exactly.
+``profile_dir`` writes a torch.profiler trace of steps 2 to 2 +
+``profile_steps`` of the first epoch, and beside it the program's spans
+recorded meanwhile (rat_tpu_torch.tracing: the epoch, the dispatch,
+captures, replays, the optimizer's eager steps, the evaluation and the
+checkpoint each record one). ``dedup_neighbors`` (or
+RAT_TPU_DEDUP_NEIGHBORS=1) gathers each batch's pool rows once per
 distinct row and expands them with the inverse index of a fixed-size
 unique: the same grid, at shapes that do not depend on the data.
 
@@ -557,11 +560,12 @@ class Trainer(object):
 
     #: train batches per grouped dispatch (the JAX package's
     #: ``_TRAIN_SCAN_BATCHES``); config key ``train_scan_batches``, env
-    #: RAT_TPU_TRAIN_SCAN_BATCHES over it, 1 or less for the per-step loop
+    #: RAT_TPU_TRAIN_SCAN_BATCHES over it, 1 or less for one batch a group
     _TRAIN_SCAN_BATCHES = 64
 
     def _train_group_size(self):
-        """Batches per grouped train dispatch; 0 runs the per-step loop."""
+        """Batches per grouped train dispatch, read as the JAX package
+        reads them; 0 (from 1 or less) for groups of one batch."""
         env = os.environ.get("RAT_TPU_TRAIN_SCAN_BATCHES")
         g = int(env) if env is not None else \
             int(self.params.get("train_scan_batches", self._TRAIN_SCAN_BATCHES))
@@ -573,10 +577,10 @@ class Trainer(object):
     def _graph_gate(self, kind="train", profiling=False):
         """None when the grouped loops replay a CUDA graph of the ``kind``
         ("train" or "eval") step, else why they run it eagerly: the CPU;
-        and for training a profiling epoch (it runs per step) and dropout
-        where this torch cannot register a generator with a graph. A mesh
-        (its collectives captured) and ``dedup_neighbors`` (a fixed-size
-        unique) take the graph."""
+        and for training a profiling epoch (its steps are traced
+        eagerly) and dropout where this torch cannot register a
+        generator with a graph. A mesh (its collectives captured) and
+        ``dedup_neighbors`` (a fixed-size unique) take the graph."""
         if self.device.type != "cuda":
             return "the CPU"
         if kind == "train":
@@ -588,14 +592,12 @@ class Trainer(object):
         return None
 
     def train_dispatch(self, group, profiling=False):
-        """How train steps dispatched in groups of ``group`` (0: per step)
-        run, in words: whether a step graph is replayed, or the gate's
-        reason why not."""
-        if not group:
-            return "per step"
+        """How train steps dispatched in groups of ``group`` batches (0 or
+        1: one) run, in words: whether a step graph is replayed, or the
+        gate's reason why not."""
         reason = self._graph_gate("train", profiling)
         return "groups of {} batches, {}".format(
-            group, "step graph replayed" if reason is None
+            max(group, 1), "step graph replayed" if reason is None
             else "no step graph ({})".format(reason))
 
     def _graph(self, kind, data, batch_size):
@@ -617,17 +619,19 @@ class Trainer(object):
             return t.pin_memory().to(self.device, non_blocking=True)
         return t.to(self.device)
 
-    def train_scan(self, data, idx_group, valid_group):
+    def train_scan(self, data, idx_group, valid_group, eager=None):
         """G train steps in one dispatch, the counterpart of the JAX
         package's ``train_scan``: ``idx_group`` [G, B] device row ids,
-        ``valid_group`` G valid counts. With the graph gate open the
-        graph of the step's forward and backward is replayed per batch,
-        the optimizer stepping eagerly after each (a new graph's first
-        batch runs eagerly whole), else each batch takes the per-step
-        program.
-        Returns the [G] losses on the device."""
+        ``valid_group`` G valid counts, for any G. With the graph gate
+        open (``eager`` None asks it; the epoch loop passes the answer it
+        got once) the graph of the step's forward and backward is
+        replayed per batch, the optimizer stepping eagerly after each (a
+        new graph's first batch runs eagerly whole), else each batch runs
+        :meth:`train_step`. Returns the [G] losses on the device."""
         self.model.train()
-        if self._graph_gate("train") is None:
+        if eager is None:
+            eager = self._graph_gate("train") is not None
+        if not eager:
             valids = self._upload(np.asarray(valid_group, np.float32))
             graph = self._graph("train", data, idx_group.shape[1])
             return graph.run(idx_group, valids)[0]
@@ -638,59 +642,35 @@ class Trainer(object):
         """Returns (epoch loss, examples, seconds). The epoch loss divides
         by the FULL batch count even when early stop cuts the epoch
         short (the reference's denominator, base_model.py:226-228). With
-        ``profile_dir``, steps 2 to 2 + ``profile_steps`` of the first
-        epoch are traced, one step per dispatch."""
+        ``profile_dir``, the first epoch runs groups of one batch without
+        the graph, and its steps 2 to 2 + ``profile_steps`` are traced."""
         profiling = self._profile_dir is not None and epoch == 0
-        group = 0 if profiling else self._train_group_size()
+        group = 1 if profiling else max(self._train_group_size(), 1)
+        eager = self._graph_gate("train", profiling) is not None
         logging.info("Train dispatch: %s", self.train_dispatch(group, profiling))
         self.model.train()
         tic = time.time()
         with tracing.span("train.epoch"):
-            if group:
-                losses, examples = self._train_one_epoch_grouped(train_gen, group)
-            else:
-                losses, examples = self._train_one_epoch_stepwise(train_gen, epoch)
+            losses, examples = self._train_one_epoch_grouped(train_gen, group, eager,
+                                                             profiling)
             step_losses = torch.cat([x.reshape(-1) for x in losses]).cpu().numpy()
         self.step_losses.extend(step_losses.tolist())
         epoch_secs = time.time() - tic
         # a float32 running sum, as the JAX package's
         return float(sum(step_losses)) / self._batches_per_epoch, examples, epoch_secs
 
-    def _train_one_epoch_stepwise(self, train_gen, epoch):
-        """One step per dispatch; returns (loss tensors, examples)."""
-        losses = []
-        examples = 0
-        profiler = None
-        batch_index = 0
-        # no enumerate(): its cached result tuple would keep the last
-        # block's buffers alive into the evaluation
-        for data, idx, valid, _ in self._epoch_stream(train_gen):
-            if self._profile_dir is not None and epoch == 0 and batch_index == 2:
-                profiler = self._start_profile()
-            idx = torch.from_numpy(idx).to(self.device)
-            losses.append(self.train_step(data, idx, valid))
-            del data
-            examples += valid
-            if profiler is not None and batch_index == 2 + self._profile_steps:
-                profiler = self._stop_profile(profiler)
-            self.on_batch_end(batch_index)
-            batch_index += 1
-            if self._stop_training:
-                break
-        if profiler is not None:
-            self._stop_profile(profiler)
-        return losses, examples
-
-    def _train_one_epoch_grouped(self, train_gen, group):
+    def _train_one_epoch_grouped(self, train_gen, group, eager, profiling):
         """Per-step semantics at grouped dispatch cost, by the JAX
-        package's rules (trainer.py:758-833): batches are buffered and a
-        full group is dispatched as one :meth:`train_scan`; a group never
-        spans an evaluation boundary (evaluate() sees the state right
-        after the boundary batch) or a change of device split (a block
-        is released after its last batch); the batches before a boundary
-        that do not fill a group take the per-step program; then
-        ``on_batch_end`` runs per batch, and early stop breaks at the
-        same batch as per step. Returns (loss tensors, examples)."""
+        package's rules (trainer.py:758-833): batches are buffered and
+        each buffer is dispatched as one :meth:`train_scan` (``eager``
+        its answer for the epoch), once it holds ``group`` batches or
+        reaches a boundary: a group never spans an evaluation boundary
+        (evaluate() sees the state right after the boundary batch) or a
+        change of device split (a block is released after its last
+        batch). Then ``on_batch_end`` runs per batch, and early stop
+        breaks at the same batch as with groups of one. ``profiling``
+        traces batches 2 to 2 + ``profile_steps``, one a group. Returns
+        (loss tensors, examples)."""
         losses = []
         examples = 0
         tic = last_beat = time.time()
@@ -698,22 +678,23 @@ class Trainer(object):
         pend = []          # buffered (idx, valid)
         cur = None         # the device split they gather from
         dispatched = 0     # batches dispatched this epoch
+        profiler = None
 
         def finalize(release):
             """Dispatch the buffer, drop the split if ``release``, then
             run the per-batch bookkeeping."""
-            nonlocal pend, cur, dispatched, examples, last_beat
+            nonlocal pend, cur, dispatched, examples, last_beat, profiler
             if not pend:
                 return
+            if profiling and dispatched == 2:
+                profiler = self._start_profile()
             with tracing.span("train.group"):
                 idx = self._upload(np.stack([i for i, _ in pend]).astype(np.int64))
                 valids = [v for _, v in pend]
-                if len(pend) == group:
-                    losses.append(self.train_scan(cur, idx, valids))
-                else:
-                    losses.extend(self.train_step(cur, idx[i], v)
-                                  for i, v in enumerate(valids))
+                losses.append(self.train_scan(cur, idx, valids, eager))
                 del idx
+            if profiler is not None and dispatched >= 2 + self._profile_steps:
+                profiler = self._stop_profile(profiler)
             if release:
                 cur = None
                 self._graphs.pop("train", None)
@@ -748,6 +729,8 @@ class Trainer(object):
                 if self._stop_training:
                     break
         finalize(True)
+        if profiler is not None:
+            self._stop_profile(profiler)
         return losses, examples
 
     def _start_profile(self):

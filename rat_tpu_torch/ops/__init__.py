@@ -2,8 +2,9 @@
 beside its plain PyTorch version:
 
 - K1 ``cross_intra_block``: one fused RAT_m2 encoder block, under a
-  ``torch.autograd.Function`` whose backward is autograd of the plain
-  version;
+  ``torch.autograd.Function`` whose backward on the card is K1's
+  backward kernel (``k1_grad_kernel``), and autograd of the plain
+  version where a shape does not take it and on the CPU;
 - K2 ``bm25_topk``: fused BM25 score + top-K over the pool;
 - K3 ``bm25_score_chunk``: dense BM25 scores against one pool chunk;
 - ``embedding_grad``: the embedding lookups' backward (``lookup``, the

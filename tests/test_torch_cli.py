@@ -36,6 +36,19 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXPID = "RAT_m2_demo_10fold_retrieval"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One CPU thread, in this process and in the processes a test
+    starts: six test workers share the host. For the whole module, so
+    that its module fixtures run on one thread too."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OMP_NUM_THREADS", "1")
+        yield
+    torch.set_num_threads(threads)
+
+
 def _workdir(root):
     """A working directory with the demo CSVs and a two-epoch copy of
     configs/demo."""

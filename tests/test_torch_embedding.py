@@ -32,6 +32,17 @@ D = 4
 PRETRAINED = {"item": (9, D), "genre": (6, D), "artist": (8, 5), "tags": (7, 3)}
 
 
+@pytest.fixture(autouse=True)
+def one_thread(monkeypatch):
+    """One CPU thread, in this process and in the processes a test
+    starts: six test workers share the host."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    yield
+    torch.set_num_threads(threads)
+
+
 def _specs():
     pre = {"pretrained_emb": "pretrained.h5"}
     return {

@@ -1,14 +1,15 @@
 """Grouped train and eval dispatch in the port against the JAX package's,
 on the CPU: the grouped fit (``train_scan_batches``) against the JAX
-package's grouped fit and against the port's own per-step fit; the group
-size's precedence; the eval window; the graph gate's answers; the tensor
-learning rate; chip_smoke's grouped phase and the grouped train bench at
-a tiny size. On the CPU the gate closes the CUDA graph, so the grouped
-loops run each step eagerly: the same steps at the same batches.
+package's grouped fit and against the port's own fit in groups of one
+batch; the group size's precedence; the groups each epoch dispatches;
+the eval window; the graph gate's answers; the tensor learning rate;
+chip_smoke's grouped phase and the grouped train bench at a tiny size.
+On the CPU the gate closes the CUDA graph, so the grouped loops run
+each step eagerly: the same steps at the same batches.
 
 The fits use the shapes of tests/test_trainer.py's grouped-dispatch
 test: 300 rows in batches of 128, a group of 2, so each epoch holds a
-full group, a per-step remainder at an evaluation boundary and the
+full group, a group of one batch at an evaluation boundary and the
 padded last batch inside a group."""
 
 import jax
@@ -160,10 +161,11 @@ def test_grouped_fit_matches_jax_grouped_fit(tiny_feature_map, demo_params, tmp_
 @pytest.mark.parametrize("every_x_epochs", [1, 0.5])
 def test_grouped_fit_equals_per_step_fit(tiny_feature_map, demo_params, tmp_path,
                                          every_x_epochs):
-    """The port's grouped fit against its per-step fit from the same
-    init: every step loss, every evaluation (at the same batch), the step
-    count, the LR and every final weight equal, bit for bit (one thread:
-    the same eager steps in the same order)."""
+    """The port's grouped fit against its fit in groups of one batch
+    (``train_scan_batches: 0``) from the same init: every step loss,
+    every evaluation (at the same batch), the step count, the LR and
+    every final weight equal, bit for bit (one thread: the same eager
+    steps in the same order)."""
     init = jax.device_get(_jax_init(tiny_feature_map, _params(demo_params, tmp_path))
                           .state.params)
     runs = []
@@ -203,23 +205,52 @@ def test_train_group_size_precedence(tiny_feature_map, demo_params, tmp_path, mo
     assert tr._train_group_size() == want == jtr._train_group_size()
 
 
-@pytest.mark.parametrize("profile_epoch", [True, False])
+@pytest.mark.parametrize("profile_epoch, group, every_x_epochs, n_rows, want", [
+    (True, 2, 1, 300, [[1, 1, 1], [2, 1]]),
+    (False, 2, 1, 300, [[2, 1], [2, 1]]),
+    (False, 4, 1, 1100, [[4, 4, 1], [4, 4, 1]]),
+    (False, 4, 0.5, 1100, [[4, 1, 4], [4, 1, 4]])])
 def test_profiling_epoch_runs_per_step(tiny_feature_map, demo_params, tmp_path, monkeypatch,
-                                       profile_epoch):
-    """With ``profile_dir`` the first epoch runs per step and the next
-    grouped; without it every epoch is grouped."""
-    params = _params(demo_params, tmp_path, train_scan_batches=2,
-                     profile_dir=str(tmp_path / "trace") if profile_epoch else None)
+                                       profile_epoch, group, every_x_epochs, n_rows, want):
+    """Every batch of every epoch passes through Trainer.train_scan, in
+    groups of ``train_scan_batches`` cut at each evaluation boundary
+    (1100 rows: 9 batches an epoch). With ``profile_dir`` the first
+    epoch dispatches groups of one batch, each run by train_step, and
+    writes the trace and the spans beside it; the next epoch is
+    grouped."""
+    trace = tmp_path / "trace"
+    params = _params(demo_params, tmp_path, train_scan_batches=group,
+                     every_x_epochs=every_x_epochs,
+                     profile_dir=str(trace) if profile_epoch else None)
     tr = Trainer(_port_map(tiny_feature_map), params, device="cpu")
-    calls = []
-    for name in ("_train_one_epoch_stepwise", "_train_one_epoch_grouped"):
-        real = getattr(tr, name)
-        monkeypatch.setattr(tr, name, lambda *a, _real=real, _name=name: (
-            calls.append(_name), _real(*a))[1])
-    tr.fit(FakeGen(n=300, seed=3), FakeGen(n=128, seed=4, shuffle=False), epochs=2)
-    grouped = "_train_one_epoch_grouped"
-    assert calls == (["_train_one_epoch_stepwise", grouped] if profile_epoch
-                     else [grouped, grouped])
+    groups, steps, eager = [], [], set()
+    scan, step, epoch = tr.train_scan, tr.train_step, tr.train_one_epoch
+
+    def spy_scan(data, idx_group, valid_group, *rest):
+        groups[-1].append(len(valid_group))
+        eager.update(rest)
+        return scan(data, idx_group, valid_group, *rest)
+
+    def spy_step(*a):
+        steps[-1] += 1
+        return step(*a)
+
+    def spy_epoch(*a):
+        groups.append([])
+        steps.append(0)
+        return epoch(*a)
+
+    monkeypatch.setattr(tr, "train_scan", spy_scan)
+    monkeypatch.setattr(tr, "train_step", spy_step)
+    monkeypatch.setattr(tr, "train_one_epoch", spy_epoch)
+    gen = FakeGen(n=n_rows, seed=3)
+    tr.fit(gen, FakeGen(n=128, seed=4, shuffle=False), epochs=2)
+    assert groups == want
+    assert steps == [len(gen)] * 2 == [sum(g) for g in groups]
+    assert eager == {True}      # the gate's answer on the CPU, passed down
+    assert len(tr.step_losses) == 2 * len(gen)
+    assert sorted(p.name.split("_")[0] for p in trace.glob("*.json")) == (
+        ["spans", "trace"] if profile_epoch else [])
     assert tr._graph_gate("train", profiling=profile_epoch) == "the CPU"
 
 

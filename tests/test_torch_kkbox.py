@@ -37,6 +37,19 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SATURATED_P = (0.0, 1.0, 1e-7, 1.0 - 6e-8, 0.5)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One CPU thread, in this process and in the processes a test
+    starts: six test workers share the host. For the whole module, so
+    that its module fixtures run on one thread too."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OMP_NUM_THREADS", "1")
+        yield
+    torch.set_num_threads(threads)
+
+
 def _bce_and_grad(fn, y):
     p = torch.tensor(SATURATED_P, dtype=torch.float32, requires_grad=True)
     value = fn(p, torch.full_like(p, y))

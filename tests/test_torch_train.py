@@ -39,6 +39,17 @@ K = 3
 BATCH = 64
 
 
+@pytest.fixture(autouse=True)
+def one_thread(monkeypatch):
+    """One CPU thread, in this process and in the processes a test
+    starts: six test workers share the host."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    yield
+    torch.set_num_threads(threads)
+
+
 def _rows(rng, n):
     """[user, item, tag, label] rows over the tiny feature map's
     vocabularies (20, 15, 10), with a learnable signal."""
