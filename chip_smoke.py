@@ -39,6 +39,14 @@ Phases, any failure exits non-zero:
              device (all its kernels per call, torch.profiler) and with
              CUDA events, index_put_ and embedding_dense_backward beside
              it, and the bytes' bound.
+3c. attention — the module encoder's attention (ops.attention) at the
+             module path's shapes (KKBox's and Tmall's RAT_m2 intra and
+             cross, ML-Tag's RAT_m0 joint sequence and RAT_m1's
+             Transformers) and edges: the kernel's output and d(qkv)
+             against the plain version's within K1's tolerances, a
+             second call bit-equal; the device ms of both kernels, the
+             plain version's and scaled_dot_product_attention's ms (a
+             yardstick the port never calls), and the bounds.
 4. serve   — RAT_m2 at the full width of the ML-Tag config
              (configs/RAT_m2/movielenslatest_x1, plus use_pallas) on
              ML-Tag-shaped data made from the seed: a ~1.4M-row pool,
@@ -65,9 +73,11 @@ Phases, any failure exits non-zero:
              fields (K2 at F=11), one epoch of Trainer.fit on the module
              path (the gate keeps K1 off), the reload, K2's neighbours
              and the card's eval logits held against plain and CPU
-             runs, K2 at F=11 held to its plain version and timed at
-             the valid split's 2400-query batch, then a short profile
-             and the step's device-time split.
+             runs, the attention kernel's launches asserted (8 forward
+             and 8 backward a train step, 8 forward an eval batch), K2
+             at F=11 held to its plain version and timed at the valid
+             split's 2400-query batch, then a short profile and the
+             step's device-time split.
 9. grouped — grouped dispatch against per-step dispatch, on the train
              and kkbox_train phases' trainers and splits (no new
              retrieval): from one saved state (weights, Adam, the dropout
@@ -262,6 +272,7 @@ from rat_tpu_torch.features import FeatureEncoder, FeatureMap, preprocess
 from rat_tpu_torch.models import build_model
 from rat_tpu_torch.nn.embedding import EmbeddingSpec
 from rat_tpu_torch.ops import _build
+from rat_tpu_torch.ops import attention as attn
 from rat_tpu_torch.ops import bm25_score_chunk as k3
 from rat_tpu_torch.ops import bm25_topk as k2
 from rat_tpu_torch.ops import cross_intra_block as k1
@@ -859,6 +870,110 @@ def check_k1_grad(rng, device):
             "grad_kernel_ms": _kernel_ms(lambda: timed(k1.cross_intra_block), 20, "k1_grad")}
 
 
+# (name, sequences, tokens, heads, dim_head) of the attention kernel's
+# cases: the module path's shapes at a batch of 4096 (KKBox's and
+# Tmall's RAT_m2 blocks, intra over s and cross over t; ML-Tag's RAT_m0
+# joint sequence and RAT_m1's intra and cross Transformers), then edges:
+# one token, sequences that do not fill a block, the longest sequence
+# and the most (head, token) pairs taken
+ATTENTION_CASES = [("kkbox.intra", 24576, 14, 8, 10), ("kkbox.cross", 57344, 6, 8, 10),
+                   ("tmall.intra", 24576, 9, 32, 10), ("tmall.cross", 36864, 6, 32, 10),
+                   ("mltag.m0_joint", 4096, 24, 2, 10), ("mltag.m1_intra", 24576, 4, 2, 10),
+                   ("mltag.m1_cross", 4096, 6, 2, 10), ("edge.seq1", 1000, 1, 8, 10),
+                   ("edge.seq13", 3001, 13, 8, 10), ("edge.seq32", 2003, 32, 8, 10),
+                   ("edge.pairs512", 1001, 16, 32, 10)]
+# calls of the attention op a RAT_m2 forward makes at depth 4 (intra and
+# cross in each block); the backward makes as many
+ATTENTION_PER_STEP = 8
+
+
+def attention_bound(n, seq, heads, dim_head, backward=False):
+    """(ms, "operations" or "bytes") of the least time of one call: the
+    forward reads qkv and writes out (2 products of seq^2 x dim_head per
+    head); the backward reads qkv and d(out) and writes d(qkv) (the
+    scores again and 4 gradient products)."""
+    inner = heads * dim_head
+    flops = 2 * n * heads * seq * seq * dim_head * (5 if backward else 2)
+    floats = n * seq * (7 * inner if backward else 4 * inner)
+    return _bound(flops, 4 * floats)
+
+
+def check_attention(rng, device, reps=20):
+    """The attention kernel (ops.attention) against its plain version at
+    ATTENTION_CASES: the output within rtol 1e-4 / atol 1e-5 and d(qkv)
+    (one random cotangent) within rtol 2e-3 / atol 1e-4, K1's tolerances;
+    a second call of each bit-equal to the first. Then per case the
+    device ms of the forward and backward kernels, CUDA-event ms of
+    forward and forward+backward of the kernel, the plain version and
+    torch's scaled_dot_product_attention (a yardstick the port never
+    calls), and the bounds. Returns the ``kernels`` entry."""
+    F = torch.nn.functional
+    out = {}
+    for name, n, seq, heads, dim_head in ATTENTION_CASES:
+        inner = heads * dim_head
+        if attn.path("cuda", torch.float32, seq, heads, dim_head) != "kernel":
+            raise AssertionError("attention {}: the kernel does not take it".format(name))
+        qkv = torch.from_numpy(2 * rng.randn(n, seq, 3 * inner).astype(np.float32)).to(device)
+        g = torch.from_numpy(rng.randn(n, seq, inner).astype(np.float32)).to(device)
+        qkv.requires_grad_()
+
+        def fwd_bwd(fn, qkv=qkv, g=g, heads=heads, dim_head=dim_head):
+            y = fn(qkv, heads, dim_head)
+            return y.detach(), torch.autograd.grad(y, qkv, g)[0]
+
+        before = (attn.launches, attn.grad_launches)
+        got, again = fwd_bwd(attn.attention), fwd_bwd(attn.attention)
+        want = fwd_bwd(attn.attention_reference)
+        torch.cuda.synchronize()
+        if (attn.launches, attn.grad_launches) != (before[0] + 2, before[1] + 2):
+            raise AssertionError("attention {}: the kernels did not run".format(name))
+        errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
+        ok = bool(((got[0] - want[0]).abs() <= 1e-5 + 1e-4 * want[0].abs()).all()) and \
+            bool(((got[1] - want[1]).abs() <= 1e-4 + 2e-3 * want[1].abs()).all())
+        bits = all(torch.equal(a, b) for a, b in zip(got, again))
+        print("attention {:15s} n={:5d} seq={:2d} h={:2d} dh={:2d}: out max_abs_err {:.3e} "
+              "(rtol 1e-4, atol 1e-5), d(qkv) {:.3e} (rtol 2e-3, atol 1e-4) {}, second "
+              "call bit-equal: {}".format(name, n, seq, heads, dim_head, errs[0], errs[1],
+                                          "ok" if ok else "FAIL", bits))
+        if not ok or not bits:
+            raise AssertionError("attention {}: the kernel disagrees with its plain "
+                                 "version or with itself".format(name))
+        del got, again, want
+        with torch.no_grad():
+            x = qkv.detach()
+            q, k, v = (t.reshape(n, seq, heads, dim_head).transpose(1, 2)
+                       for t in x.chunk(3, dim=-1))
+            res = {"n": n, "seq": seq, "heads": heads, "dim_head": dim_head,
+                   "ms": _kernel_ms(lambda: attn.attention(x, heads, dim_head), reps,
+                                    "attention_fwd_kernel"),
+                   "call_ms": _cuda_ms(lambda: attn.attention(x, heads, dim_head), reps),
+                   "plain_ms": _cuda_ms(lambda: attn.attention_reference(x, heads, dim_head),
+                                        reps),
+                   "library_ms": _cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v),
+                                          reps)}
+        res["grad_ms"] = _kernel_ms(lambda: fwd_bwd(attn.attention), reps,
+                                    "attention_bwd_kernel")
+        res["fwd_bwd_ms"] = _cuda_ms(lambda: fwd_bwd(attn.attention), reps)
+        res["plain_fwd_bwd_ms"] = _cuda_ms(lambda: fwd_bwd(attn.attention_reference), reps)
+        qkv_h = [t.detach().reshape(n, seq, heads, dim_head).transpose(1, 2).requires_grad_()
+                 for t in qkv.chunk(3, dim=-1)]
+        g_h = g.reshape(n, seq, heads, dim_head).transpose(1, 2)
+        res["library_fwd_bwd_ms"] = _cuda_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(*qkv_h), qkv_h, g_h), reps)
+        res["bound_ms"], res["bound_by"] = attention_bound(n, seq, heads, dim_head)
+        res["grad_bound_ms"], res["grad_bound_by"] = attention_bound(n, seq, heads, dim_head,
+                                                                     backward=True)
+        out[name] = res
+        print("attention {:15s} forward {ms:.4f} ms on the device ({call_ms:.4f} a call), "
+              "bound {bound_ms:.4f} ({bound_by}), plain {plain_ms:.4f}, library "
+              "{library_ms:.4f}; backward kernel {grad_ms:.4f} ms, bound {grad_bound_ms:.4f} "
+              "({grad_bound_by}); forward+backward {fwd_bwd_ms:.4f} ms a call, plain "
+              "{plain_fwd_bwd_ms:.4f}, library {library_fwd_bwd_ms:.4f}".format(name, **res))
+        del qkv, g, x, q, k, v, qkv_h, g_h
+    return {"name": "attention", "route": "cuda", "source": "rat_tpu_torch/csrc/attention.cu",
+            "replaces": None, "shapes": out}
+
+
 def _emb_grad_cases(seed, batch=4096, samples=6):
     """(cell, table, ids [batch, samples, ...], rows, d) of the lookups
     in one train step of each train cell, from rows drawn as the ML-Tag
@@ -1229,8 +1344,10 @@ def kkbox_train(device, seed, train, valid, batch_size, model_root, vocab=None):
     K1 launch (the gate), K2's launch count, finite losses, BatchNorm's
     running statistics moved, the reload gives the monitored AUC, AUC
     above 0.5, the neighbours of 512 valid queries equal the plain
-    scan's, and the card's eval-mode logits of 512 valid rows within
-    1e-5 of the same weights run on the CPU (a reference run). Returns
+    scan's, the card's eval-mode logits of 512 valid rows within 1e-5 of
+    the same weights run on the CPU (a reference run), and on a card the
+    attention kernel's launches: ATTENTION_PER_STEP forward and backward
+    a train step, as many forward an eval batch, none plain. Returns
     (trainer, train generator, dict of results)."""
     cuda = torch.device(device).type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
@@ -1277,12 +1394,17 @@ def kkbox_train(device, seed, train, valid, batch_size, model_root, vocab=None):
                              "onto the fused path")
     bn_before = _bn_buffers(trainer.model)
     k1.launches = emb_grad.launches = 0
+    attn.launches = attn.grad_launches = attn.plain = 0
     sync()
     t3 = time.perf_counter()
     trainer.fit(train_gen, valid_gen, epochs=1)
     sync()
     t4 = time.perf_counter()
     k1_launches, emb_launches = k1.launches, emb_grad.launches
+    # the fit: every train step's forward and backward and the epoch's
+    # evaluation; then the reload's evaluation and the logits' forward
+    attn_fit = {"forward": attn.launches, "backward": attn.grad_launches,
+                "plain": attn.plain}
 
     losses = np.asarray(trainer.step_losses)
     if len(losses) != len(train_gen) or not np.all(np.isfinite(losses)):
@@ -1313,12 +1435,20 @@ def kkbox_train(device, seed, train, valid, batch_size, model_root, vocab=None):
         raise AssertionError("kkbox_train: the card's logits differ from the CPU "
                              "reference run's by {}".format(logits_err))
 
+    per = ATTENTION_PER_STEP if cuda else 0
+    steps, batches = len(train_gen), len(valid_gen)
     expected = {"cross_intra_block": 0,
                 "bm25_topk": _fold_k2_batches(len(train), retrieval)
                 + _k2_batches(len(valid), retrieval) if cuda else 0,
-                "embedding_grad": EMB_GRAD_PER_STEP * len(train_gen) if cuda else 0}
+                "embedding_grad": EMB_GRAD_PER_STEP * len(train_gen) if cuda else 0,
+                "attention_fit": {"forward": per * (steps + batches),
+                                  "backward": per * steps, "plain": 0},
+                "attention": {"forward": per * (steps + 2 * batches + 1),
+                              "backward": per * steps, "plain": 0}}
     launches = {"cross_intra_block": k1_launches, "bm25_topk": k2_launches,
-                "embedding_grad": emb_launches}
+                "embedding_grad": emb_launches, "attention_fit": attn_fit,
+                "attention": {"forward": attn.launches, "backward": attn.grad_launches,
+                              "plain": attn.plain}}
     if launches != expected:
         raise AssertionError("kkbox_train: launches {} against the expected {}".format(
             launches, expected))
@@ -3599,18 +3729,21 @@ def main(argv=None):
                check_k3(rng, device, pool, test)]
     kernels[0].update(check_k1_grad(rng, device))
     kernels.append(check_emb_grad(args.seed, device))
+    kernels.append(check_attention(rng, device))
     k3_checks = k3.launches      # K3 is on no path: none may follow
-    # the embedding backward's launches by path, taken after each path in
-    # this process (subprocesses' calls not counted); train and
-    # kkbox_train count and assert their own
-    emb_by_path = {}
+    # the embedding backward's and the attention kernel's launches by
+    # path, taken after each path in this process (subprocesses' calls not
+    # counted); train and kkbox_train count and assert their own
+    emb_by_path, attn_by_path = {}, {}
 
-    def emb_count(path):
+    def count_path(path):
         if path is not None:
             emb_by_path[path] = emb_grad.launches
-        emb_grad.launches = 0
+            attn_by_path[path] = {"forward": attn.launches, "backward": attn.grad_launches,
+                                  "plain": attn.plain}
+        emb_grad.launches = attn.launches = attn.grad_launches = attn.plain = 0
 
-    emb_count(None)
+    count_path(None)
 
     batch_size = MLTAG_PARAMS["batch_size"]
     res = serve(device, args.seed, pool, test, batch_size)
@@ -3624,7 +3757,7 @@ def main(argv=None):
                              "batches = {}".format(serve_launches["cross_intra_block"],
                                                    res["depth"] * res["batches"]))
     profile_serve(device, args.seed, pool, test, batch_size)
-    emb_count("serve")
+    count_path("serve")
 
     with tempfile.TemporaryDirectory() as model_root:
         trainer, train_gen, res = train(device, args.seed, pool, test, batch_size,
@@ -3637,6 +3770,7 @@ def main(argv=None):
         print("train steady state: " + json.dumps(
             profile_train(trainer, train_gen, args.seed)))
 
+        count_path("train")      # the attention's calls; train's own count is asserted
         kk_train, kk_valid = kkbox_arrays(args.seed, KKBOX_TRAIN_ROWS, KKBOX_VALID_ROWS)
         kk_trainer, kk_gen, res = kkbox_train(device, args.seed, kk_train, kk_valid,
                                               batch_size, os.path.join(model_root, "kkbox"))
@@ -3649,7 +3783,7 @@ def main(argv=None):
                                label="kkbox_train")
         steady["step_split_device_ms"] = step_split(kk_trainer, kk_gen, args.seed)
         print("kkbox_train steady state: " + json.dumps(steady))
-        emb_count(None)          # the profiled steps after train and kkbox_train
+        count_path(None)          # the profiled steps after train and kkbox_train
         t0 = time.perf_counter()
         res, grouped_launches = grouped(trainer, train_gen, trainer.valid_gen, kk_trainer,
                                         kk_gen, args.seed)
@@ -3660,7 +3794,7 @@ def main(argv=None):
               "evaluations): "
               + json.dumps(grouped_launches))
         print("grouped phase: {:.1f} s".format(time.perf_counter() - t0))
-        emb_count("grouped")
+        count_path("grouped")
         del kk_trainer, kk_gen, kk_train, kk_valid
         torch.cuda.empty_cache()
 
@@ -3668,7 +3802,7 @@ def main(argv=None):
                        model_root)
         variant_launches = {k: sum(r["launches"][k] for r in res.values())
                             for k in ("cross_intra_block", "bm25_topk")}
-        emb_count("variants")
+        count_path("variants")
 
         t0 = time.perf_counter()
         res, scan_launches = mesh_scan(device, pool, test)
@@ -3687,7 +3821,7 @@ def main(argv=None):
               + json.dumps(train_launches_m))
         print("mesh phase: {:.1f} s".format(time.perf_counter() - t0))
         mesh_launches = {k: scan_launches[k] + train_launches_m[k] for k in scan_launches}
-        emb_count("mesh")
+        count_path("mesh")
     del trainer, train_gen
     torch.cuda.empty_cache()
     if k3.launches != k3_checks:
@@ -3702,17 +3836,17 @@ def main(argv=None):
                 print("native {} build seconds: {}".format(
                     name, json.dumps(res[name + "_build_s"])))
         print("native phase: {:.1f} s".format(time.perf_counter() - t0))
-        emb_count(None)
+        count_path(None)
         res = cli(device, args.seed, work_dir)
         cli_launches = res.pop("launches")
-        emb_count("cli")
+        count_path("cli")
         print("cli: " + json.dumps(res))
         print("cli launches (asserted: K1 = depth x (epochs x (train steps + valid "
               "batches) + valid batches + test batches), K2 = query batches of the 10 "
               "folds + the valid and test splits, K3 = 0; the rerun K2 = 0): "
               + json.dumps(cli_launches))
         res, block_launches = blocks(device, args.seed, work_dir)
-        emb_count("blocks")
+        count_path("blocks")
         print("blocks: " + json.dumps(res))
         print("blocks launches (asserted from the block sizes: K1 = depth x (train steps "
               "+ 2 x valid batches + test batches) in each command; K2 (a) = query "
@@ -3730,9 +3864,9 @@ def main(argv=None):
     uniform_pool, uniform_test = mltag_arrays(args.seed + 1, MLTAG_POOL_ROWS,
                                               MLTAG_TEST_ROWS, zipf_a=0.0)
     k1.launches = k2.launches = k3.launches = 0
-    emb_count(None)
+    count_path(None)
     exact_match(device, args.seed, pool, test, uniform_pool, uniform_test)
-    emb_count("exact_match")
+    count_path("exact_match")
     exm_launches = {"cross_intra_block": k1.launches, "bm25_topk": k2.launches,
                     "bm25_score_chunk": k3.launches}
     if any(exm_launches.values()):
@@ -3745,7 +3879,7 @@ def main(argv=None):
           "eval 100 steps; retrieval "
           "200,000 pool rows x 100,000 queries".format(json.dumps(BENCH_STEPS)))
     _, bench_launches, _ = bench(device)
-    emb_count("bench")
+    count_path("bench")
     print("bench launches (asserted per bench: K1 = depth x (warm-up + 3 x window) on "
           "the fused ML-Tag path, else 0; K2 = 2 calls x query batches of 2048 in "
           "the retrieval bench, else 0): " + json.dumps(bench_launches))
@@ -3754,7 +3888,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as work_dir:
         res, autotune_launches = autotune(device, args.seed, work_dir)
-    emb_count("autotune")
+    count_path("autotune")
     print("autotune: " + json.dumps(res))
     print("autotune launches (the card run's log; asserted K1 > 0): "
           + json.dumps(autotune_launches))
@@ -3763,7 +3897,7 @@ def main(argv=None):
     k1.launches = k2.launches = k3.launches = 0
     with tempfile.TemporaryDirectory() as work_dir:
         res = precision(device, work_dir)
-    emb_count("precision")
+    count_path("precision")
     precision_launches = {"cross_intra_block": k1.launches, "bm25_topk": k2.launches,
                           "bm25_score_chunk": k3.launches}
     if precision_launches != res.pop("launches"):
@@ -3784,9 +3918,9 @@ def main(argv=None):
     print("precision phase: {:.1f} s".format(time.perf_counter() - t0))
     t0 = time.perf_counter()
     k1.launches = k2.launches = k3.launches = 0
-    emb_count(None)
+    count_path(None)
     res = nnlib(device, args.seed)
-    emb_count("nnlib")
+    count_path("nnlib")
     nnlib_launches = {"cross_intra_block": k1.launches, "bm25_topk": k2.launches,
                       "bm25_score_chunk": k3.launches}
     if any(nnlib_launches.values()):
@@ -3798,7 +3932,7 @@ def main(argv=None):
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as work_dir:
         res = scripts(device, work_dir, sizes=SCRIPT_SIZES)
-    emb_count("scripts")
+    count_path("scripts")
     scripts_launches = res.pop("launches")
     kernels[1].update({k + "_tmall_f5": v for k, v in res.pop("k2_tmall").items()})
     print("scripts: " + json.dumps(res))
@@ -3827,6 +3961,11 @@ def main(argv=None):
     print("embedding_grad launches by path (this process's calls; asserted {} a train "
           "step in train and kkbox_train): {}".format(EMB_GRAD_PER_STEP,
                                                       json.dumps(emb_by_path)))
+    attn_by_path["kkbox_train"] = kkbox_launches["attention"]
+    kernels[4]["launches_by_path"] = attn_by_path
+    print("attention launches by path (this process's calls; asserted {} forward and "
+          "backward a train step and forward an eval batch in kkbox_train): {}".format(
+              ATTENTION_PER_STEP, json.dumps(attn_by_path)))
     print(smi.splitlines()[0])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -75,8 +75,10 @@ for the card inside a group.
   the number of K1 launches run on the card. The same holds for K1's
   backward (``grad_captured``, ``grad_launches``), and each replay adds
   the graph's plain backward calls to ``grad_plain``. The embedding
-  lookups' backward (ops/embedding_grad.py) is counted the same way:
-  ``captured`` at the capture, then per replay ``launches``.
+  lookups' backward (ops/embedding_grad.py) and the module encoder's
+  attention (ops/attention.py: ``captured`` and ``grad_captured`` at the
+  capture, then per replay ``launches`` and ``grad_launches``, and its
+  plain calls per replay to ``plain``) are counted the same way.
 - **Gradients.** The backward writes the gradients into the graph's
   memory pool; each replay hands those tensors back to the parameters'
   ``.grad`` before the optimizer steps, since an eager step in between
@@ -92,6 +94,7 @@ for the card inside a group.
 import torch
 
 from .. import tracing
+from ..ops import attention as attn
 from ..ops import cross_intra_block as k1
 from ..ops import embedding_grad as emb
 from ..parallel import process_local_rows
@@ -122,6 +125,7 @@ class StepGraph(object):
         self.k1_per_replay = 0
         self.k1_grad_per_replay = self.k1_plain_per_replay = 0
         self.emb_per_replay = 0
+        self.attn_per_replay = (0, 0, 0)     # attention: forward, backward, plain
         self.replays = 0
         # a replay's span and counter names (rat_tpu_torch.tracing), made
         # once: a replay runs per batch
@@ -149,12 +153,16 @@ class StepGraph(object):
             if self.kind == "train" and self.trainer._has_dropout():
                 graph.register_generator_state(self.trainer.dropout_generator)
             before = (k1.captured, k1.grad_captured, k1.grad_plain, emb.captured)
+            attn_before = (attn.captured, attn.grad_captured, attn.plain)
             with torch.cuda.graph(graph, stream=self.stream):
                 outputs = self._step(captured=True)
         self.k1_per_replay = k1.captured - before[0]
         self.k1_grad_per_replay = k1.grad_captured - before[1]
         self.k1_plain_per_replay = k1.grad_plain - before[2]
         self.emb_per_replay = emb.captured - before[3]
+        self.attn_per_replay = (attn.captured - attn_before[0],
+                                attn.grad_captured - attn_before[1],
+                                attn.plain - attn_before[2])
         self.graph, self.outputs = graph, outputs
         self.grads = [(p, p.grad) for p in self.trainer.model.parameters()
                       if p.grad is not None]
@@ -201,6 +209,9 @@ class StepGraph(object):
             k1.grad_launches += self.k1_grad_per_replay
             k1.grad_plain += self.k1_plain_per_replay
             emb.launches += self.emb_per_replay
+            attn.launches += self.attn_per_replay[0]
+            attn.grad_launches += self.attn_per_replay[1]
+            attn.plain += self.attn_per_replay[2]
             if self.kind == "train":
                 with tracing.span("train.optim"):
                     for p, grad in self.grads:

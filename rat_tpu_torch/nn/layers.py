@@ -34,7 +34,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.cross_intra_block import attention
+from ..ops import attention as attention_op
 from .embedding import PackedEmbedding
 from .initializers import xavier_normal
 
@@ -299,7 +299,8 @@ def mhsa(q, k, v, heads, scale):
 
 class Attention(nn.Module):
     """Fused-QKV multi-head self-attention; dropout after the output
-    projection, when there is one."""
+    projection, when there is one. The softmax attention between the two
+    projections is ``ops.attention.attention``: on a card, its kernel."""
 
     def __init__(self, dim, heads=8, dim_head=64, dropout=0., generator=None):
         super().__init__()
@@ -313,11 +314,9 @@ class Attention(nn.Module):
         self.drop = Dropout(dropout)
 
     def forward(self, x):
-        out = attention(x, self.to_qkv.weight,
-                        None if self.to_out is None else self.to_out.weight,
-                        None if self.to_out is None else self.to_out.bias,
-                        self.heads, self.dim_head, self.project_out)
-        return self.drop(out) if self.project_out else out
+        out = attention_op.attention(F.linear(x, self.to_qkv.weight), self.heads,
+                                     self.dim_head)
+        return self.drop(self.to_out(out)) if self.project_out else out
 
 
 class PreNorm(nn.Module):

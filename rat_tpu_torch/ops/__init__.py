@@ -10,7 +10,11 @@ beside its plain PyTorch version:
 - ``embedding_grad``: the embedding lookups' backward (``lookup``, the
   gather under a ``torch.autograd.Function`` whose backward,
   ``table_grad``, is the kernel on the card; plain version
-  ``table_grad_reference``).
+  ``table_grad_reference``);
+- ``attention``: softmax attention over short sequences from the packed
+  QKV projection, the module encoder's attention core (``attention``;
+  on the card an autograd Function whose forward and backward are the
+  kernel; plain version ``attention_reference``).
 
 Each module holds the wrapper of the same name, its plain version
 (``*_reference``) and the wrapper's ``launches`` count. The package
@@ -18,4 +22,5 @@ exports the modules, not the wrappers, so that a wrapper's name does not
 hide the module that holds its count.
 """
 
-from . import bm25_score_chunk, bm25_topk, cross_intra_block, embedding_grad  # noqa: F401
+from . import (attention, bm25_score_chunk, bm25_topk, cross_intra_block,  # noqa: F401
+               embedding_grad)

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .attention import attention_reference
 
 PARAM_ORDER = ("ln1_scale", "ln1_bias", "w_qkv1", "w_out1", "b_out1",
                "ln2_scale", "ln2_bias", "w_qkv2", "w_out2", "b_out2",
@@ -55,17 +56,9 @@ grad_plain = 0
 
 def attention(x, w_qkv, w_out, b_out, heads, dim_head, project_out):
     """x [n, seq, d] -> [n, seq, d]: fused QKV (no bias), per-head
-    softmax attention scaled by dim_head ** -0.5, out-projection."""
-    n, s, _ = x.shape
-    q, k, v = F.linear(x, w_qkv).chunk(3, dim=-1)
-
-    def heads_first(t):
-        return t.reshape(n, s, heads, -1).transpose(1, 2)
-
-    q, k, v = heads_first(q), heads_first(k), heads_first(v)
-    dots = torch.matmul(q, k.transpose(-1, -2)) * dim_head ** -0.5
-    out = torch.matmul(torch.softmax(dots, dim=-1), v)
-    out = out.transpose(1, 2).reshape(n, s, -1)
+    softmax attention scaled by dim_head ** -0.5 (the plain
+    ``ops.attention.attention_reference`` on every device), out-projection."""
+    out = attention_reference(F.linear(x, w_qkv), heads, dim_head)
     if project_out:
         out = F.linear(out, w_out, b_out)
     return out

@@ -11,7 +11,8 @@ activity a profile records share one timeline.
   process; ``counters()`` returns them, with the kernels' own launch
   counters under their modules' names (``cross_intra_block.launches``,
   ``.captured``, ``.grad_launches``, ``.grad_captured``, ``.grad_plain``,
-  ``embedding_grad.launches``, ``.captured``,
+  ``embedding_grad.launches``, ``.captured``, ``attention.launches``,
+  ``.captured``, ``.grad_launches``, ``.grad_captured``, ``.plain``,
   ``bm25_topk.launches``), which count whether or not anything records.
 - Recording is off by default. It is on while a torch.profiler session
   runs (``torch.autograd.profiler._is_profiler_enabled``), and between
@@ -149,7 +150,7 @@ class Recorder(object):
     def counters(self):
         """A snapshot of the counters, the kernels' launch counters
         included."""
-        from .ops import bm25_topk, cross_intra_block, embedding_grad
+        from .ops import attention, bm25_topk, cross_intra_block, embedding_grad
         out = dict(self._counts)
         out.update({"cross_intra_block.launches": cross_intra_block.launches,
                     "cross_intra_block.captured": cross_intra_block.captured,
@@ -158,7 +159,12 @@ class Recorder(object):
                     "cross_intra_block.grad_plain": cross_intra_block.grad_plain,
                     "embedding_grad.launches": embedding_grad.launches,
                     "embedding_grad.captured": embedding_grad.captured,
-                    "bm25_topk.launches": bm25_topk.launches})
+                    "bm25_topk.launches": bm25_topk.launches,
+                    "attention.launches": attention.launches,
+                    "attention.captured": attention.captured,
+                    "attention.grad_launches": attention.grad_launches,
+                    "attention.grad_captured": attention.grad_captured,
+                    "attention.plain": attention.plain})
         return out
 
     def dropped(self):

@@ -269,7 +269,9 @@ def test_chip_smoke_kkbox_phase_on_cpu(tmp_path):
     trainer, gen, res = chip_smoke.kkbox_train("cpu", 0, train, valid, 64,
                                                str(tmp_path), vocab=KKBOX_TINY_VOCAB)
     assert (k1.launches, k2.launches) == before
-    assert res["launches"] == {"cross_intra_block": 0, "bm25_topk": 0, "embedding_grad": 0}
+    none = {"forward": 0, "backward": 0, "plain": 0}
+    assert res["launches"] == {"cross_intra_block": 0, "bm25_topk": 0, "embedding_grad": 0,
+                               "attention_fit": none, "attention": none}
     assert res["steps"] == len(gen) == 32 and res["valid_batches"] == 7
     assert res["fields"] == 13 and res["retrieval_fields"] == 11
     assert res["neighbours_checked"] == 400 and res["card_vs_cpu_logits_max_abs_err"] == 0
